@@ -1,0 +1,139 @@
+"""Vertex / block data model — the parts the verifier reads.
+
+A copy of ``VertexID``, ``Block`` and ``Vertex`` from
+``dag_rider_tpu/core/types.py``, with ``signing_bytes``/``digest``
+byte-identical to the reference: the port's verifier signs and checks the
+same bytes. The rest of that module (certificates, wire messages, lane
+and epoch records) belongs to the consensus host layer, a later slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import struct
+from typing import NamedTuple, Optional, Tuple
+
+
+class VertexID(NamedTuple):
+    """Unique vertex identity: (round, source).
+
+    Mirrors ``vertexID`` (reference ``process/process.go:19-24``). A correct
+    process creates at most one vertex per round, so this pair is unique.
+    Ordered lexicographically (round first) — this ordering is the
+    deterministic tiebreak used by total-order delivery.
+
+    A NamedTuple, not a frozen dataclass: ids are constructed and hashed
+    millions of times per consensus run (proposal frontiers alone build
+    n ids per proposal × n processes), and tuple __new__/__hash__ run in
+    C — the frozen-dataclass version's __init__ + precomputed-hash dance
+    was ~3 us per id and the single hottest allocation site of the
+    n=256 host profile.
+
+    Being a NamedTuple, a VertexID hashes and compares equal to the bare
+    tuple ``(round, source)`` — INTENTIONAL (ADVICE r5 #4): hot paths
+    may probe dicts/sets keyed by VertexID with plain tuples (skipping
+    even the NamedTuple constructor) and membership answers must agree.
+    Do not "fix" this by overriding __eq__/__hash__; code must not rely
+    on the two being distinguishable.
+    """
+
+    round: int
+    source: int
+
+    def encode(self) -> bytes:
+        return struct.pack("<II", self.round, self.source)
+
+
+@dataclasses.dataclass(frozen=True)
+class Block:
+    """A client payload block (reference ``process/process.go:14-17``).
+
+    The reference's block is an empty struct; ours carries real transaction
+    bytes so end-to-end delivery is observable.
+    """
+
+    transactions: Tuple[bytes, ...] = ()
+
+    def encode(self) -> bytes:
+        out = [struct.pack("<I", len(self.transactions))]
+        for tx in self.transactions:
+            out.append(struct.pack("<I", len(tx)))
+            out.append(tx)
+        return b"".join(out)
+
+    @staticmethod
+    def decode(data: bytes, offset: int = 0) -> Tuple["Block", int]:
+        (count,) = struct.unpack_from("<I", data, offset)
+        offset += 4
+        txs = []
+        for _ in range(count):
+            (ln,) = struct.unpack_from("<I", data, offset)
+            offset += 4
+            txs.append(data[offset : offset + ln])
+            offset += ln
+        return Block(tuple(txs)), offset
+
+
+@dataclasses.dataclass(frozen=True)
+class Vertex:
+    """A DAG vertex (reference ``process/process.go:26-31``).
+
+    strong_edges point to round-1 vertices (>= 2f+1 of them for a valid
+    vertex); weak_edges point to otherwise-unreachable vertices in rounds
+    < round-1, providing the fairness/inclusion guarantee (Alg. 2 lines
+    29-31, quoted at reference ``process.go:300-302``).
+    """
+
+    id: VertexID
+    block: Block = Block()
+    strong_edges: Tuple[VertexID, ...] = ()
+    weak_edges: Tuple[VertexID, ...] = ()
+    signature: Optional[bytes] = None
+    coin_share: Optional[bytes] = None
+
+    @property
+    def round(self) -> int:
+        return self.id.round
+
+    @property
+    def source(self) -> int:
+        return self.id.source
+
+    def signing_bytes(self) -> bytes:
+        """Canonical encoding of everything a source attests to.
+
+        Excludes the signature itself. Edges are sorted so the encoding is
+        independent of construction order. Memoized: the encoding of an
+        immutable vertex is hit once per verify *and* once per digest, and
+        re-serializing ~2f+1 edges dominated the verifier's host prep at
+        n=256 (round-2 VERDICT weak #3).
+        """
+        cached = self.__dict__.get("_signing_bytes")
+        if cached is not None:
+            return cached
+        out = [b"dagrider-vertex-v1", self.id.encode(), self.block.encode()]
+        for label, edges in ((b"S", self.strong_edges), (b"W", self.weak_edges)):
+            out.append(label)
+            out.append(struct.pack("<I", len(edges)))
+            # VertexID is a NamedTuple: plain tuple comparison IS the
+            # canonical (round, source) order, and it sorts in C
+            for e in sorted(edges):
+                out.append(e.encode())
+        out.append(b"C")
+        share = self.coin_share or b""
+        out.append(struct.pack("<I", len(share)))
+        out.append(share)
+        enc = b"".join(out)
+        object.__setattr__(self, "_signing_bytes", enc)
+        return enc
+
+    def digest(self) -> bytes:
+        """SHA-512 digest of the canonical encoding (what gets signed).
+        Memoized alongside :meth:`signing_bytes`."""
+        cached = self.__dict__.get("_digest")
+        if cached is not None:
+            return cached
+        d = hashlib.sha512(self.signing_bytes()).digest()
+        object.__setattr__(self, "_digest", d)
+        return d
