@@ -1,10 +1,15 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one NVIDIA card.
+"""Drive the PyTorch port's paths once on one NVIDIA card.
 
-The main path is round signature verification: a committee of n = 256
-validators, 16 DAG rounds of 256 signed vertices (171 strong edges each),
-verified by ``CUDAVerifier.verify_rounds`` as one merged 4,096-signature
-dispatch through the hand-written CUDA kernels. The script:
+Two paths, each through the hand-written CUDA kernels. The main path is
+round signature verification: a committee of n = 256 validators, 16 DAG
+rounds of 256 signed vertices (171 strong edges each), verified by
+``CUDAVerifier.verify_rounds`` as one merged 4,096-signature dispatch.
+The second is the BLS12-381 G1 multi-scalar multiplication at n = 256:
+the threshold coin (``ThresholdCoin`` with ``msm=bls_msm.msm`` combining
+f + 1 = 86 shares, and filtering a Byzantine share) and round-certificate
+aggregation (``CertVerifier(msm="device")`` summing 2f + 1 = 171
+signatures). The script:
 
 1. prints the card's name and power limit, builds the kernels from
    ``dag_rider_tpu_torch/csrc`` with nvcc, and prints the ptxas register
@@ -22,7 +27,16 @@ dispatch through the hand-written CUDA kernels. The script:
    path on the card on every row; then the dispatch time (median of
    several, host prep and device split), sigs/s, peak device memory, and
    the device time split into copies, gather, tree and finish;
-5. prints ``{"kernels": [...]}``, the card line again, and as the last
+5. BLS phases: ``padd381_xx`` against its plain version on real curve
+   points at 1, 4,096, 8,192 and 65,536 lanes, exactly, timed beside its
+   bound; then, with the counters set to 0 before each and read after,
+   one coin wave (sigma and leader byte-identical to the host coin), one
+   wave with a corrupted share (the same ``filtered`` count, sigma and
+   leader as the host coin), and one certificate (``agg_sig``
+   byte-identical to the host group law, and verified by the host
+   pairing); the MSM's wall time and its device split into tables,
+   gather, tree, Horner and canonical;
+6. prints ``{"kernels": [...]}``, the card line again, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. Run it from the root of
@@ -45,6 +59,13 @@ N_CORRUPT = 64
 N_VALID_SAMPLE = 64
 SEED = 20261017
 PATH_REPEATS = 5
+
+BLS_N = 256
+BLS_THRESHOLD = BLS_N // 3 + 1  # f + 1 = 86 shares combine into the coin
+CERT_QUORUM = 2 * (BLS_N // 3) + 1  # 2f + 1 = 171 signatures per certificate
+BAD_SHARE = 17  # index of the corrupted share, among the first f + 1
+WIDE_LANES = 65536  # padd381_xx's widest check, beyond the path's widths
+MSM_REPEATS = 5
 
 # Published H100 SXM peak memory rate (NVIDIA data sheet), used for the
 # byte side of each kernel's bound.
@@ -127,9 +148,12 @@ def main() -> int:
     # -- build ------------------------------------------------------------
     t0 = time.perf_counter()
     build.build_all()
-    print(f"build: {time.perf_counter() - t0:.1f} s (nvcc {build.last_build_s:.1f} s)")
-    for line in build.ptxas_report("ed25519_group"):
-        print(f"  ptxas: {line}")
+    per_source = ", ".join(f"{k} {v:.1f} s" for k, v in build.last_build_times.items())
+    print(f"build: {time.perf_counter() - t0:.1f} s (nvcc {build.last_build_s:.1f} s, "
+          f"in parallel: {per_source or 'nothing to build'})")
+    for stem in ("ed25519_group", "bls381_group"):
+        for line in build.ptxas_report(stem):
+            print(f"  ptxas {stem}: {line}")
 
     # -- set-up: registry, device tables, signed rounds ---------------------
     t0 = time.perf_counter()
@@ -324,12 +348,218 @@ def main() -> int:
           f"{gather_ms:.3f} ms, tree {tree_ms:.3f} ms, finish {finish_ms:.3f} ms; sum "
           f"{copy_ms + gather_ms + tree_ms + finish_ms:.3f} ms")
 
+    report.append(bls_phases(dev, imad_per_s))
+
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def msm_launches(t: int) -> int:
+    """padd381_xx launches of one MSM over T points: 15 table steps, the
+    log2 T tree levels, 64 x 5 Horner steps."""
+    return 15 + t.bit_length() - 1 + 320
+
+
+def bls_phases(dev, imad_per_s: float) -> dict:
+    """The BLS12-381 MSM path at n = 256 through ``padd381_xx``; returns
+    the kernel's report row. Fails on any mismatch."""
+    import dataclasses
+    import hashlib
+    import random
+
+    import numpy as np
+    import torch
+
+    from dag_rider_tpu_torch.consensus.coin import ThresholdCoin
+    from dag_rider_tpu_torch.crypto import bls12381 as bls, threshold as th
+    from dag_rider_tpu_torch.ops import bls_msm, cuda_group381 as G, field381 as F
+    from dag_rider_tpu_torch.verifier.base import CertSigner, KeyRegistry
+    from dag_rider_tpu_torch.verifier.cert import CertVerifier
+
+    # one complete addition: 12 general 33x33 products, each with its fold
+    # through FOLD's nonzero entries, and 2 multiplies by 12
+    imads_per_lane = 12 * (F.LIMBS * F.LIMBS + int((F.FOLD != 0).sum())) + 2 * F.LIMBS
+
+    # -- set-up: keys, shares, certificate signatures -------------------------
+    t0 = time.perf_counter()
+    keys = th.ThresholdKeys.generate(BLS_N, BLS_THRESHOLD)
+    t_keys = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    waves = {w: {i: th.sign_share(keys.share_sks[i], w) for i in range(BLS_N)}
+             for w in (1, 2)}
+    waves[2][BAD_SHARE] = th.sign_share(keys.share_sks[BAD_SHARE], 2 + 991)
+    t_shares = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reg, _, cert_sks = KeyRegistry.generate_with_cert(BLS_N)
+    rng = random.Random(SEED)
+    signers = sorted(rng.sample(range(BLS_N), CERT_QUORUM))
+    entries = []
+    for i in signers:
+        digest = hashlib.sha512(b"round-7|" + i.to_bytes(4, "little")).digest()
+        entries.append((i, digest, CertSigner(cert_sks[i]).sign_digest(digest)))
+    t_cert_keys = time.perf_counter() - t0
+    print(f"bls set-up: threshold keys {t_keys:.2f} s, {2 * BLS_N} shares "
+          f"{t_shares:.2f} s, certificate keys + {CERT_QUORUM} signatures {t_cert_keys:.2f} s")
+
+    # the MSMs' real inputs: the coin's f + 1 shares with their Lagrange
+    # coefficients (T = 128), the certificate's 171 signatures (T = 256)
+    coin_pts = [bls.g1_decompress(waves[1][i]) for i in range(BLS_THRESHOLD)]
+    coin_lams = th.lagrange_at_zero([i + 1 for i in range(BLS_THRESHOLD)])
+    cert_pts = [bls.g1_decompress(sig) for _, _, sig in entries]
+    msm_inputs = {}
+    for name, scalars, pts in (("coin", coin_lams, coin_pts),
+                               ("certificate", [1] * len(cert_pts), cert_pts)):
+        t = bls_msm._pad(len(pts))
+        nib, px, py, pz = (torch.from_numpy(a).to(dev)
+                           for a in bls_msm.pack_inputs(scalars, pts, t))
+        lm = torch.cat([px, py, pz], dim=-1).t().contiguous()
+        tables = bls_msm.point_tables_packed(lm)
+        lanes = bls_msm.gather_windows(nib, tables)
+        msm_inputs[name] = {"scalars": scalars, "points": pts, "t": t, "nib": nib,
+                            "lm": lm, "tables": tables, "lanes": lanes}
+
+    # -- kernel phase: padd381_xx against its plain version -------------------
+    # Real curve points in projective form: the first tree level of each MSM
+    # (4,096 and 8,192 lanes at n = 256), a doubling on one lane (as in the
+    # Horner chain), and WIDE_LANES pairs drawn from the certificate's 4,096
+    # table entries (1/16 of them the identity, 1/16 of the pairs doublings).
+    operands = {}
+    for name in ("coin", "certificate"):
+        lanes = msm_inputs[name]["lanes"]
+        half = lanes.shape[1] // 2
+        operands[half] = (lanes[:, :half], lanes[:, half:])
+    cert_width = max(operands)
+    flat = msm_inputs["certificate"]["tables"].permute(1, 0, 2).reshape(G.ROWS, -1)
+    prng = np.random.default_rng(SEED)
+    idx_p = torch.from_numpy(prng.integers(0, flat.shape[1], WIDE_LANES)).to(dev)
+    idx_q = torch.from_numpy(prng.integers(0, flat.shape[1], WIDE_LANES)).to(dev)
+    idx_q[::16] = idx_p[::16]
+    operands[1] = (flat[:, 5:6], flat[:, 5:6])
+    operands[WIDE_LANES] = (flat[:, idx_p], flat[:, idx_q])
+    widths = {}
+    for lanes_n in sorted(operands):
+        p, q = operands[lanes_n]
+        got = G.padd381_xx(p, q)
+        want = G.padd381_xx_plain(p, q)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max().item())
+        ms = cuda_ms(lambda: G.padd381_xx(p, q), 50 if lanes_n < WIDE_LANES else 20)
+        plain_ms = cuda_ms(lambda: G.padd381_xx_plain(p, q), 3, 1)
+        b_ms, b_by = bound(3 * G.ROWS * 4 * lanes_n, imads_per_lane * lanes_n, imad_per_s)
+        print(f"kernel padd381_xx: lanes {lanes_n}, equal {err == 0}, {ms:.4f} ms "
+              f"(plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by})")
+        if err != 0:
+            fail(f"padd381_xx disagrees with its plain version at {lanes_n} lanes "
+                 f"(max abs err {err})")
+        widths[lanes_n] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                           "bound_ms": b_ms, "bound_by": b_by}
+    row = {"name": "padd381_xx", "route": "cuda", "source": G.SOURCE,
+           "replaces": "dag_rider_tpu/ops/pallas_group381.py:150", "launches": None,
+           **widths[cert_width], "library_ms": None, "lanes": cert_width,
+           "widths": {str(k): v for k, v in widths.items()}}
+
+    # -- coin path: n = 256, f + 1 = 86 shares, one honest wave ----------------
+    def coin_wave(wave):
+        host = ThresholdCoin(keys, 0, BLS_N)
+        card = ThresholdCoin(keys, 0, BLS_N, msm=bls_msm.msm)
+        for coin in (host, card):
+            for src, share in waves[wave].items():
+                coin.observe_share(wave, src, share)
+        torch.cuda.synchronize()
+        G.reset_launches()
+        t0 = time.perf_counter()
+        ready = card.ready(wave)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = G.LAUNCHES["padd381_xx"]
+        t0 = time.perf_counter()
+        host_ready = host.ready(wave)
+        host_wall = time.perf_counter() - t0
+        if not (ready and host_ready):
+            fail(f"coin wave {wave} not ready (card {ready}, host {host_ready})")
+        if card._sigma[wave] != host._sigma[wave]:
+            fail(f"coin wave {wave}: sigma differs from the host coin")
+        leader = card.choose_leader(wave)
+        if leader != host.choose_leader(wave) or card.filtered != host.filtered:
+            fail(f"coin wave {wave}: leader {leader} / filtered {card.filtered} differ "
+                 f"from the host coin's {host.choose_leader(wave)} / {host.filtered}")
+        print(f"coin wave {wave} (n {BLS_N}, threshold {BLS_THRESHOLD}): sigma "
+              f"{card._sigma[wave].hex()[:16]}... and leader {leader} equal to the host "
+              f"coin; filtered {card.filtered}; padd381 launches {launches}; ready() "
+              f"{wall * 1e3:.1f} ms on the card path, {host_wall * 1e3:.1f} ms host")
+        return card.filtered, launches
+
+    coin_t, cert_t = msm_inputs["coin"]["t"], msm_inputs["certificate"]["t"]
+    filtered, coin_launches = coin_wave(1)
+    if filtered != 0 or coin_launches != msm_launches(coin_t):
+        fail(f"honest coin wave: filtered {filtered}, launches {coin_launches} "
+             f"(want 0, {msm_launches(coin_t)})")
+    filtered, byz_launches = coin_wave(2)
+    if filtered != 1:
+        fail(f"Byzantine coin wave: filtered {filtered}, want 1")
+    if byz_launches == 0:
+        fail("the Byzantine coin wave launched no padd381_xx")
+
+    # -- certificate path: n = 256, 2f + 1 = 171 signatures --------------------
+    cv = CertVerifier(reg, CERT_QUORUM, msm="device")
+    torch.cuda.synchronize()
+    G.reset_launches()
+    t0 = time.perf_counter()
+    cert = cv.make_certificate(7, entries)
+    torch.cuda.synchronize()
+    make_wall = time.perf_counter() - t0
+    cert_launches = G.LAUNCHES["padd381_xx"]
+    host_cert = CertVerifier(reg, CERT_QUORUM, msm="host").make_certificate(7, entries)
+    if cert is None or cert.agg_sig != host_cert.agg_sig:
+        fail("certificate agg_sig differs from the host group law's")
+    if cert_launches != msm_launches(cert_t):
+        fail(f"certificate MSM launched padd381_xx {cert_launches} times, "
+             f"want {msm_launches(cert_t)}")
+    t0 = time.perf_counter()
+    ok = cv.verify_certificate(cert)
+    verify_s = time.perf_counter() - t0
+    if not ok:
+        fail("the card-aggregated certificate does not verify")
+    if cv.verify_certificate(dataclasses.replace(cert, signers=cert.signers[:-1])):
+        fail("a certificate below quorum verified")
+    print(f"certificate (n {BLS_N}, quorum {CERT_QUORUM}): agg_sig {cert.agg_sig.hex()[:16]}... "
+          f"equal to the host group law; padd381 launches {cert_launches}; "
+          f"make_certificate {make_wall * 1e3:.1f} ms; host pairing verify {verify_s:.2f} s")
+    row["launches"] = coin_launches + byz_launches + cert_launches
+    print(f"bls path launches: coin {coin_launches}, Byzantine coin wave {byz_launches}, "
+          f"certificate {cert_launches}")
+
+    # -- MSM wall time and device split -----------------------------------------
+    for name, m in msm_inputs.items():
+        scalars, pts, t, nib, lm, tables, lanes = (
+            m[k] for k in ("scalars", "points", "t", "nib", "lm", "tables", "lanes"))
+        walls = []
+        for _ in range(MSM_REPEATS):
+            t0 = time.perf_counter()
+            res = bls_msm.msm(scalars, pts)
+            walls.append(time.perf_counter() - t0)
+        if res != bls.g1_msm(scalars, pts):
+            fail(f"{name} MSM differs from the host group law")
+        w = G.tree_sum_lanes(lanes, t)
+        acc = bls_msm.horner_packed(w)
+        xyz = torch.stack([acc[:F.LIMBS, 0], acc[F.LIMBS:2 * F.LIMBS, 0], acc[2 * F.LIMBS:, 0]])
+        split = {
+            "tables": cuda_ms(lambda: bls_msm.point_tables_packed(lm), 5),
+            "gather": cuda_ms(lambda: bls_msm.gather_windows(nib, tables), 5),
+            "tree": cuda_ms(lambda: G.tree_sum_lanes(lanes, t), 5),
+            "horner": cuda_ms(lambda: bls_msm.horner_packed(w), 3, 1),
+            "canonical": cuda_ms(lambda: F.canonical(xyz), 3, 1),
+        }
+        parts = ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+        print(f"{name} MSM (T = {t}, {len(pts)} points): wall median "
+              f"{statistics.median(walls) * 1e3:.2f} ms (runs "
+              f"{[round(x * 1e3, 2) for x in walls]} ms); device split (CUDA events): "
+              f"{parts}; sum {sum(split.values()):.3f} ms")
+    return row
 
 
 if __name__ == "__main__":

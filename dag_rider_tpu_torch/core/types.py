@@ -3,8 +3,10 @@
 A copy of ``VertexID``, ``Block`` and ``Vertex`` from
 ``dag_rider_tpu/core/types.py``, with ``signing_bytes``/``digest``
 byte-identical to the reference: the port's verifier signs and checks the
-same bytes. The rest of that module (certificates, wire messages, lane
-and epoch records) belongs to the consensus host layer, a later slice.
+same bytes, and ``RoundCertificate``, the aggregated attestation of a
+round that ``verifier.cert.CertVerifier`` assembles and checks. The rest
+of that module (span certificates, wire messages, lane and epoch records)
+belongs to the consensus host layer, a later slice.
 """
 
 from __future__ import annotations
@@ -137,3 +139,29 @@ class Vertex:
         d = hashlib.sha512(self.signing_bytes()).digest()
         object.__setattr__(self, "_digest", d)
         return d
+
+
+@dataclasses.dataclass(frozen=True)
+class RoundCertificate:
+    """One aggregated attestation for a whole DAG round.
+
+    Assembled by the round's designated aggregator once it has directly
+    verified a quorum of the round's vertices: ``signers`` lists the
+    source indices covered (sorted, >= 2f+1 of them), ``digests`` the
+    matching vertex digests (parallel to ``signers``), and ``agg_sig``
+    the compressed G1 sum of the per-vertex BLS ``cert_sig`` values.
+    A receiver checks the whole round with ONE aggregate pairing —
+    e(agg, -G2) * prod e(H(digest_i), pk_i) == 1 — instead of one
+    ed25519 verify per vertex.
+    """
+
+    round: int
+    signers: Tuple[int, ...]
+    digests: Tuple[bytes, ...]
+    agg_sig: bytes
+
+    def signing_key(self) -> tuple:
+        """Hashable identity of what the certificate claims — the memo
+        key for sharing one verification verdict across an in-process
+        cluster (the registry identity is added by the verifier)."""
+        return (self.round, self.signers, self.digests, self.agg_sig)

@@ -1,0 +1,1015 @@
+"""BLS12-381 — host reference implementation (fields, curves, pairing).
+
+The port's copy of ``dag_rider_tpu/crypto/bls12381.py`` (host code, no
+array library): keys, signatures, compressed points and pairing verdicts
+are byte-identical to the JAX package's. ``sign_many`` keeps only its host
+path.
+
+The reference's common coin is a hardcoded stub returning 1
+(``process/process.go:390-392``); its TODO names the real design: "PKI and
+a threshold signature scheme with a threshold of (f+1)-of-n"
+(``process.go:388``). This module supplies the pairing-friendly curve that
+scheme runs on (BASELINE.json: "256-node BLS12-381 aggregate sigs +
+threshold-BLS common coin").
+
+Pure Python ints (CPython bignums), written for auditability over speed:
+
+- Fp / Fp2 / Fp6 / Fp12 tower (u^2 = -1, v^3 = u + 1, w^2 = v);
+- E(Fp): y^2 = x^3 + 4 (G1) and the M-twist E'(Fp2):
+  y^2 = x^3 + 4(u+1) (G2), Jacobian-free affine arithmetic;
+- the ate pairing via a generic Miller loop over E(Fp12) (G2 points are
+  untwisted through (x, y) -> (x w^-2, y w^-3)) and full final
+  exponentiation — slower than a dedicated tower pipeline but easily
+  checked against bilinearity tests;
+- minimal-signature-size BLS: signatures in G1 (48 bytes), public keys in
+  G2; hash-to-G1 by try-and-increment (internal protocol — we control
+  both ends, no interop constraint with the hash-to-curve draft).
+
+The card accelerates the G1 MSM used by threshold-share aggregation and
+certificate aggregation (ops/bls_msm.py); the pairing checks stay
+host-side, exactly as ordering decisions do.
+"""
+
+from __future__ import annotations
+
+import collections
+import hashlib
+from typing import List, Optional, Sequence, Tuple
+
+# --- base field / curve parameters (standard BLS12-381 constants) ----------
+
+P = 0x1A0111EA397FE69A4B1BA7B6434BACD764774B84F38512BF6730D2A0F6B0F6241EABFFFEB153FFFFB9FEFFFFFFFFAAAB
+R = 0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001
+X_PARAM = -0xD201000000010000  # the BLS parameter (negative)
+
+G1_GEN = (
+    0x17F1D3A73197D7942695638C4FA9AC0FC3688C4F9774B905A14E3A3F171BAC586C55E83FF97A1AEFFB3AF00ADB22C6BB,
+    0x08B3F481E3AAA0F1A09E30ED741D8AE4FCF5E095D5D00AF600DB18CB2C04B3EDD03CC744A2888AE40CAA232946C5E7E1,
+)
+G2_GEN = (
+    (
+        0x024AA2B2F08F0A91260805272DC51051C6E47AD4FA403B02B4510B647AE3D1770BAC0326A805BBEFD48056C8C121BDB8,
+        0x13E02B6052719F607DACD3A088274F65596BD0D09920B61AB5DA61BBDC7F5049334CF11213945D57E5AC7D055D042B7E,
+    ),
+    (
+        0x0CE5D527727D6E118CC9CDC6DA2E351AADFD9BAA8CBDD3A76D429A695160D12C923AC9CC3BACA289E193548608B82801,
+        0x0606C4A02EA734CC32ACD2B02BC28B99CB3E287E85A763AF267492AB572E99AB3F370D275CEC1DA1AAA9075FF05F79BE,
+    ),
+)
+
+
+def _inv_p(x: int) -> int:
+    return pow(x, P - 2, P)
+
+
+# --- Fp2 = Fp[u] / (u^2 + 1) ----------------------------------------------
+# elements are (a, b) = a + b u
+
+
+def fp2_add(x, y):
+    return ((x[0] + y[0]) % P, (x[1] + y[1]) % P)
+
+
+def fp2_sub(x, y):
+    return ((x[0] - y[0]) % P, (x[1] - y[1]) % P)
+
+
+def fp2_neg(x):
+    return (-x[0] % P, -x[1] % P)
+
+
+def fp2_mul(x, y):
+    a, b = x
+    c, d = y
+    return ((a * c - b * d) % P, (a * d + b * c) % P)
+
+
+def fp2_sqr(x):
+    a, b = x
+    return ((a + b) * (a - b) % P, 2 * a * b % P)
+
+
+def fp2_scalar(x, k: int):
+    return (x[0] * k % P, x[1] * k % P)
+
+
+def fp2_inv(x):
+    a, b = x
+    norm = (a * a + b * b) % P
+    ni = _inv_p(norm)
+    return (a * ni % P, -b * ni % P)
+
+
+FP2_ZERO = (0, 0)
+FP2_ONE = (1, 0)
+
+
+# --- Fp6 = Fp2[v] / (v^3 - (u+1)) -----------------------------------------
+# elements are (c0, c1, c2) with ci in Fp2; XI = u + 1
+
+XI = (1, 1)
+
+
+def fp6_add(x, y):
+    return tuple(fp2_add(a, b) for a, b in zip(x, y))
+
+
+def fp6_sub(x, y):
+    return tuple(fp2_sub(a, b) for a, b in zip(x, y))
+
+
+def fp6_neg(x):
+    return tuple(fp2_neg(a) for a in x)
+
+
+def fp6_mul(x, y):
+    a0, a1, a2 = x
+    b0, b1, b2 = y
+    t0 = fp2_mul(a0, b0)
+    t1 = fp2_mul(a1, b1)
+    t2 = fp2_mul(a2, b2)
+    c0 = fp2_add(
+        t0,
+        fp2_mul(
+            XI,
+            fp2_sub(
+                fp2_mul(fp2_add(a1, a2), fp2_add(b1, b2)), fp2_add(t1, t2)
+            ),
+        ),
+    )
+    c1 = fp2_add(
+        fp2_sub(fp2_mul(fp2_add(a0, a1), fp2_add(b0, b1)), fp2_add(t0, t1)),
+        fp2_mul(XI, t2),
+    )
+    c2 = fp2_add(
+        fp2_sub(fp2_mul(fp2_add(a0, a2), fp2_add(b0, b2)), fp2_add(t0, t2)),
+        t1,
+    )
+    return (c0, c1, c2)
+
+
+def fp6_scalar_fp2(x, s):
+    return tuple(fp2_mul(a, s) for a in x)
+
+
+def fp6_mul_by_v(x):
+    """v * (c0 + c1 v + c2 v^2) = XI c2 + c0 v + c1 v^2."""
+    return (fp2_mul(XI, x[2]), x[0], x[1])
+
+
+def fp6_inv(x):
+    a0, a1, a2 = x
+    t0 = fp2_sub(fp2_sqr(a0), fp2_mul(XI, fp2_mul(a1, a2)))
+    t1 = fp2_sub(fp2_mul(XI, fp2_sqr(a2)), fp2_mul(a0, a1))
+    t2 = fp2_sub(fp2_sqr(a1), fp2_mul(a0, a2))
+    denom = fp2_add(
+        fp2_mul(a0, t0),
+        fp2_mul(XI, fp2_add(fp2_mul(a2, t1), fp2_mul(a1, t2))),
+    )
+    di = fp2_inv(denom)
+    return (fp2_mul(t0, di), fp2_mul(t1, di), fp2_mul(t2, di))
+
+
+FP6_ZERO = (FP2_ZERO, FP2_ZERO, FP2_ZERO)
+FP6_ONE = (FP2_ONE, FP2_ZERO, FP2_ZERO)
+
+
+# --- Fp12 = Fp6[w] / (w^2 - v) --------------------------------------------
+# elements are (c0, c1) with ci in Fp6
+
+
+def fp12_add(x, y):
+    return (fp6_add(x[0], y[0]), fp6_add(x[1], y[1]))
+
+
+def fp12_sub(x, y):
+    return (fp6_sub(x[0], y[0]), fp6_sub(x[1], y[1]))
+
+
+def fp12_mul(x, y):
+    a0, a1 = x
+    b0, b1 = y
+    t0 = fp6_mul(a0, b0)
+    t1 = fp6_mul(a1, b1)
+    c0 = fp6_add(t0, fp6_mul_by_v(t1))
+    c1 = fp6_sub(
+        fp6_mul(fp6_add(a0, a1), fp6_add(b0, b1)), fp6_add(t0, t1)
+    )
+    return (c0, c1)
+
+
+def fp12_sqr(x):
+    return fp12_mul(x, x)
+
+
+def fp12_inv(x):
+    a0, a1 = x
+    denom = fp6_sub(fp6_mul(a0, a0), fp6_mul_by_v(fp6_mul(a1, a1)))
+    di = fp6_inv(denom)
+    return (fp6_mul(a0, di), fp6_neg(fp6_mul(a1, di)))
+
+
+def fp12_conj(x):
+    """Conjugation c0 - c1 w == x^(p^6) — the cheap inverse for elements
+    in the cyclotomic subgroup (|x| = 1 after the easy exponentiation)."""
+    return (x[0], fp6_neg(x[1]))
+
+
+def fp12_pow(x, e: int):
+    if e < 0:
+        x = fp12_inv(x)
+        e = -e
+    acc = FP12_ONE
+    while e:
+        if e & 1:
+            acc = fp12_mul(acc, x)
+        x = fp12_sqr(x)
+        e >>= 1
+    return acc
+
+
+FP12_ZERO = (FP6_ZERO, FP6_ZERO)
+FP12_ONE = (FP6_ONE, FP6_ZERO)
+
+# w and its inverse powers, used by the untwist map.
+W = (FP6_ZERO, FP6_ONE)  # w
+W2 = (  # w^2 = v
+    (FP2_ZERO, FP2_ONE, FP2_ZERO),
+    FP6_ZERO,
+)
+W2_INV = fp12_inv(W2)
+W3_INV = fp12_inv(fp12_mul(W2, W))
+
+
+def fp12_from_fp2(x) -> tuple:
+    return (((x[0], x[1]), FP2_ZERO, FP2_ZERO), FP6_ZERO)
+
+
+# --- affine curve arithmetic over a generic field --------------------------
+# Points are None (infinity) or (x, y) with coordinates in the field; the
+# field is abstracted by the ops tuple (add, sub, mul, inv, neg, scalar).
+
+
+class _Ops:
+    __slots__ = ("add", "sub", "mul", "inv", "neg", "small")
+
+    def __init__(self, add, sub, mul, inv, neg, small):
+        self.add, self.sub, self.mul, self.inv, self.neg, self.small = (
+            add,
+            sub,
+            mul,
+            inv,
+            neg,
+            small,
+        )
+
+
+_FP_OPS = _Ops(
+    lambda a, b: (a + b) % P,
+    lambda a, b: (a - b) % P,
+    lambda a, b: a * b % P,
+    _inv_p,
+    lambda a: -a % P,
+    lambda a, k: a * k % P,
+)
+_FP2_OPS = _Ops(fp2_add, fp2_sub, fp2_mul, fp2_inv, fp2_neg, fp2_scalar)
+
+
+def _ec_add(ops: _Ops, p1, p2):
+    if p1 is None:
+        return p2
+    if p2 is None:
+        return p1
+    x1, y1 = p1
+    x2, y2 = p2
+    if x1 == x2:
+        if y1 == ops.neg(y2) and y1 != y2:
+            return None
+        if y1 == y2:
+            return _ec_double(ops, p1)
+        return None
+    lam = ops.mul(ops.sub(y2, y1), ops.inv(ops.sub(x2, x1)))
+    x3 = ops.sub(ops.sub(ops.mul(lam, lam), x1), x2)
+    y3 = ops.sub(ops.mul(lam, ops.sub(x1, x3)), y1)
+    return (x3, y3)
+
+
+def _ec_double(ops: _Ops, p1):
+    if p1 is None:
+        return None
+    x1, y1 = p1
+    three_x2 = ops.small(ops.mul(x1, x1), 3)
+    lam = ops.mul(three_x2, ops.inv(ops.small(y1, 2)))
+    x3 = ops.sub(ops.mul(lam, lam), ops.small(x1, 2))
+    y3 = ops.sub(ops.mul(lam, ops.sub(x1, x3)), y1)
+    return (x3, y3)
+
+
+def _ec_mul(ops: _Ops, k: int, p1):
+    """[k]P via the Jacobian ladder (one inversion total — the affine
+    double-and-add paid a ~0.2 ms modular inverse per step, which made
+    255-bit muls ~0.14 s each and committee-scale keygen/signing minutes
+    of host time)."""
+    if k % R == 0 or p1 is None:
+        return None
+    if ops is _FP_OPS:
+        zero, one = 0, 1
+    else:
+        zero, one = FP2_ZERO, FP2_ONE
+    return _ec_msm(ops, zero, one, [k], [p1])
+
+
+# public G1/G2 ops
+
+# Fixed-base comb for the generators (host twin of the Ed25519 signing
+# comb, crypto/ed25519.scalar_mult_base): [k]GEN decomposes into 4-bit
+# digits over precomputed [16^w]GEN powers, and the Straus MSM then costs
+# 4 doublings + ~2 mixed additions per nonzero digit instead of the
+# 255-doubling ladder. Committee keygen is n fixed-base G2 muls (~9 ms
+# each on the ladder — 2.4 s of the sim256 box at n=256); the tables
+# build lazily (~50 ms per curve, affine doubles).
+_GEN_POWS: dict = {}
+
+
+def _gen_pows(curve: str):
+    if curve not in _GEN_POWS:
+        ops, gen = (
+            (_FP_OPS, G1_GEN) if curve == "g1" else (_FP2_OPS, G2_GEN)
+        )
+        pows, g = [], gen
+        for w in range(64):
+            pows.append(g)
+            if w < 63:  # the last entry needs no further doublings
+                for _ in range(4):
+                    g = _ec_double(ops, g)
+        _GEN_POWS[curve] = pows
+    return _GEN_POWS[curve]
+
+
+def _gen_mul(curve: str, k: int):
+    ops, zero, one = (
+        (_FP_OPS, 0, 1) if curve == "g1" else (_FP2_OPS, FP2_ZERO, FP2_ONE)
+    )
+    k %= R
+    digits = [(k >> (4 * w)) & 0xF for w in range(64)]
+    return _ec_msm(ops, zero, one, digits, _gen_pows(curve))
+
+
+def g1_add(p1, p2):
+    return _ec_add(_FP_OPS, p1, p2)
+
+
+def g1_double(p1):
+    return _ec_double(_FP_OPS, p1)
+
+
+def g1_mul(k: int, p1=G1_GEN):
+    if p1 is G1_GEN:
+        return _gen_mul("g1", k)
+    return _ec_mul(_FP_OPS, k, p1)
+
+
+def g1_neg(p1):
+    return None if p1 is None else (p1[0], -p1[1] % P)
+
+
+def g2_add(p1, p2):
+    return _ec_add(_FP2_OPS, p1, p2)
+
+
+def g2_mul(k: int, p1=G2_GEN):
+    if p1 is G2_GEN:
+        return _gen_mul("g2", k)
+    return _ec_mul(_FP2_OPS, k, p1)
+
+
+def g2_neg(p1):
+    return None if p1 is None else (p1[0], fp2_neg(p1[1]))
+
+
+# --- Jacobian multi-scalar multiplication ---------------------------------
+#
+# Host-side MSM over either curve. The affine _ec_add pays one field
+# inversion (a ~0.2 ms pow) per addition; Jacobian coordinates defer the
+# single inversion to the very end, which is what makes the coin's batched
+# share verification (threshold.batch_verify_shares) and the host
+# aggregate() fallback tractable at committee scale. Formulas: EFD dbl-2009-l / madd-2007-bl (a = 0 curves; both
+# E(Fp) and the twist E'(Fp2) have a = 0). Identity is Z == 0.
+
+
+def _jac_double(ops: _Ops, p):
+    X1, Y1, Z1 = p
+    A = ops.mul(X1, X1)
+    B = ops.mul(Y1, Y1)
+    C = ops.mul(B, B)
+    t = ops.add(X1, B)
+    D = ops.small(ops.sub(ops.sub(ops.mul(t, t), A), C), 2)
+    E = ops.small(A, 3)
+    X3 = ops.sub(ops.mul(E, E), ops.small(D, 2))
+    Y3 = ops.sub(ops.mul(E, ops.sub(D, X3)), ops.small(C, 8))
+    Z3 = ops.small(ops.mul(Y1, Z1), 2)
+    return (X3, Y3, Z3)
+
+
+def _jac_madd(ops: _Ops, p, q, zero):
+    """Mixed addition: Jacobian p + affine q. Neither may be the identity
+    (the caller tracks an identity accumulator as None). Returns None for
+    p == -q."""
+    X1, Y1, Z1 = p
+    x2, y2 = q
+    Z1Z1 = ops.mul(Z1, Z1)
+    U2 = ops.mul(x2, Z1Z1)
+    S2 = ops.mul(ops.mul(y2, Z1), Z1Z1)
+    H = ops.sub(U2, X1)
+    r = ops.small(ops.sub(S2, Y1), 2)
+    if H == zero:
+        if ops.sub(S2, Y1) == zero:
+            return _jac_double(ops, p)
+        return None  # p == -q: identity (caller substitutes)
+    HH = ops.mul(H, H)
+    I = ops.small(HH, 4)
+    J = ops.mul(H, I)
+    V = ops.mul(X1, I)
+    X3 = ops.sub(ops.sub(ops.mul(r, r), J), ops.small(V, 2))
+    Y3 = ops.sub(ops.mul(r, ops.sub(V, X3)), ops.small(ops.mul(Y1, J), 2))
+    t = ops.add(Z1, H)
+    Z3 = ops.sub(ops.sub(ops.mul(t, t), Z1Z1), HH)
+    return (X3, Y3, Z3)
+
+
+def _ec_msm(ops: _Ops, zero, one, scalars, points):
+    """sum_i [k_i] P_i — Straus shared-doubling over Jacobian coords.
+
+    Points are affine tuples or None (identity). One inversion total, at
+    the final Jacobian->affine conversion. Cost: max_bits doublings +
+    (popcount of all scalars) mixed additions.
+    """
+    pairs = [
+        (k % R, p)
+        for k, p in zip(scalars, points)
+        if p is not None and k % R != 0
+    ]
+    if not pairs:
+        return None
+    nbits = max(k.bit_length() for k, _ in pairs)
+    acc = None  # Jacobian identity
+    for bit in range(nbits - 1, -1, -1):
+        if acc is not None:
+            acc = _jac_double(ops, acc)
+        for k, p in pairs:
+            if (k >> bit) & 1:
+                if acc is None:
+                    acc = (p[0], p[1], one)
+                else:
+                    acc = _jac_madd(ops, acc, p, zero)
+    return _jac_to_affine(ops, acc, zero)
+
+
+def _jac_to_affine(ops: _Ops, acc, zero):
+    if acc is None or acc[2] == zero:
+        return None
+    zi = ops.inv(acc[2])
+    zi2 = ops.mul(zi, zi)
+    return (ops.mul(acc[0], zi2), ops.mul(ops.mul(acc[1], zi2), zi))
+
+
+def g1_msm(scalars: Sequence[int], points) :
+    """Host G1 MSM (Jacobian Straus) — fallback when no device MSM is
+    plugged in; also the fast path for small (RLC) coefficients."""
+    return _ec_msm(_FP_OPS, 0, 1, scalars, points)
+
+
+def g2_msm(scalars: Sequence[int], points):
+    """Host G2 MSM (Jacobian Straus over Fp2)."""
+    return _ec_msm(_FP2_OPS, FP2_ZERO, FP2_ONE, scalars, points)
+
+
+def g1_on_curve(p1) -> bool:
+    if p1 is None:
+        return True
+    x, y = p1
+    return (y * y - x * x * x - 4) % P == 0
+
+
+def g2_on_curve(p1) -> bool:
+    if p1 is None:
+        return True
+    x, y = p1
+    rhs = fp2_add(fp2_mul(fp2_mul(x, x), x), fp2_scalar(XI, 4))
+    return fp2_sub(fp2_mul(y, y), rhs) == (0, 0)
+
+
+# --- pairing ---------------------------------------------------------------
+
+
+def _untwist(q):
+    """E'(Fp2) -> E(Fp12): (x, y) -> (x w^-2, y w^-3)."""
+    if q is None:
+        return None
+    x, y = q
+    return (
+        fp12_mul(fp12_from_fp2(x), W2_INV),
+        fp12_mul(fp12_from_fp2(y), W3_INV),
+    )
+
+
+def _line(ops: _Ops, t, s, p):
+    """Evaluate the line through t and s (or the tangent at t when t == s)
+    at the G1 point p (embedded in Fp12)."""
+    xp, yp = p
+    xt, yt = t
+    if t == s:
+        num = ops.small(ops.mul(xt, xt), 3)
+        den = ops.small(yt, 2)
+    else:
+        xs, ys = s
+        if xt == xs:
+            # vertical line x - xt
+            return ops.sub(xp, xt)
+        num = ops.sub(ys, yt)
+        den = ops.sub(xs, xt)
+    lam = ops.mul(num, ops.inv(den))
+    return ops.sub(ops.sub(yp, yt), ops.mul(lam, ops.sub(xp, xt)))
+
+
+def miller_loop(q, p) -> tuple:
+    """f_{|x|, Q}(P) over E(Fp12), generic double-and-add Miller loop."""
+    if p is None or q is None:
+        return FP12_ONE
+    ops = _Ops(
+        fp12_add,
+        fp12_sub,
+        fp12_mul,
+        fp12_inv,
+        lambda v: fp12_sub(FP12_ZERO, v),
+        lambda v, k: fp12_mul(v, fp12_from_small(k)),
+    )
+    qe = _untwist(q)
+    pe = (fp12_from_fp(p[0]), fp12_from_fp(p[1]))
+    t = qe
+    f = FP12_ONE
+    n = abs(X_PARAM)
+    for bit in bin(n)[3:]:
+        f = fp12_mul(fp12_sqr(f), _line(ops, t, t, pe))
+        t = _ec_double(ops, t)
+        if bit == "1":
+            f = fp12_mul(f, _line(ops, t, qe, pe))
+            t = _ec_add(ops, t, qe)
+    if X_PARAM < 0:
+        f = fp12_conj(f)  # f^(p^6) == f^-1 up to the final exponentiation
+    return f
+
+
+def fp12_from_fp(a: int) -> tuple:
+    return (((a % P, 0), FP2_ZERO, FP2_ZERO), FP6_ZERO)
+
+
+def fp12_from_small(k: int) -> tuple:
+    return fp12_from_fp(k)
+
+
+# Frobenius: u^2 = -1 so conj is the Fp2 Frobenius; v^p = gamma1 * v and
+# w^p = gamma_w * w with the constants below (p == 1 mod 6).
+_GAMMA1 = None
+_GAMMAW = None
+
+
+def _frob_consts():
+    global _GAMMA1, _GAMMAW
+    if _GAMMA1 is None:
+        # XI^((p-1)/3) and XI^((p-1)/6) in Fp2
+        def fp2_pow(x, e):
+            acc = FP2_ONE
+            while e:
+                if e & 1:
+                    acc = fp2_mul(acc, x)
+                x = fp2_sqr(x)
+                e >>= 1
+            return acc
+
+        _GAMMA1 = fp2_pow(XI, (P - 1) // 3)
+        _GAMMAW = fp2_pow(XI, (P - 1) // 6)
+    return _GAMMA1, _GAMMAW
+
+
+def fp2_conj(x):
+    return (x[0], -x[1] % P)
+
+
+def fp12_frobenius(x):
+    """x^p via coefficient-wise conjugation and the twist constants."""
+    g1c, gw = _frob_consts()
+    g2c = fp2_sqr(g1c)
+    (a0, a1, a2), (b0, b1, b2) = x
+    c0 = (fp2_conj(a0), fp2_mul(fp2_conj(a1), g1c), fp2_mul(fp2_conj(a2), g2c))
+    d0 = fp2_mul(fp2_conj(b0), gw)
+    d1 = fp2_mul(fp2_mul(fp2_conj(b1), g1c), gw)
+    d2 = fp2_mul(fp2_mul(fp2_conj(b2), g2c), gw)
+    return (c0, (d0, d1, d2))
+
+
+_HARD_EXP = (P**4 - P**2 + 1) // R
+
+
+def final_exponentiation(f) -> tuple:
+    """f^((p^12-1)/r): easy part via conjugation + Frobenius, hard part by
+    direct exponentiation with (p^4 - p^2 + 1)/r."""
+    # easy: f^((p^6 - 1)(p^2 + 1))
+    f = fp12_mul(fp12_conj(f), fp12_inv(f))       # f^(p^6 - 1)
+    f = fp12_mul(fp12_frobenius(fp12_frobenius(f)), f)  # * f^(p^2)
+    return fp12_pow(f, _HARD_EXP)
+
+
+def pairing(p, q) -> tuple:
+    """e(P, Q) for P in G1, Q in G2 — ate Miller loop + final exp."""
+    return final_exponentiation(miller_loop(q, p))
+
+
+def pairing_product(pairs: Sequence[Tuple[object, object]]) -> tuple:
+    """prod e(Pi, Qi) as a GT element (shared final exponentiation).
+
+    The GT *value* (not just the ==1 bit) is what the coin's batched
+    share verification uses to localize a single bad share: the defect
+    ratios of two coefficient vectors pin down the bad index
+    (threshold.batch_verify_shares)."""
+    f = FP12_ONE
+    for p, q in pairs:
+        f = fp12_mul(f, miller_loop(q, p))
+    return final_exponentiation(f)
+
+
+def pairing_check(pairs: Sequence[Tuple[object, object]]) -> bool:
+    """prod e(Pi, Qi) == 1 — the multi-pairing product check. The final
+    exponentiation is shared across the product (the big win of batching
+    pairing checks)."""
+    return pairing_product(pairs) == FP12_ONE
+
+
+# --- precomputed multi-pairing (certificate fast path) ----------------------
+#
+# The generic miller_loop pays one fp12 inversion PER STEP in _line — the
+# dominant cost of a host pairing. For the certificate path the G2 side is
+# always a long-lived public key (or -G2_GEN), so the line coefficients of
+# the fixed double-and-add schedule over |x| can be computed once per key
+# and replayed: evaluation per pair per step is then one fp12-by-Fp scalar
+# multiply (12 base-field mults) plus adds — no inversions. All pairs share
+# one accumulator (one fp12_sqr per bit regardless of pair count) and one
+# final exponentiation, so the marginal cost of an extra pair is ~20x below
+# a fresh miller_loop. Verdicts are bit-identical to pairing_check (the
+# algebra is the same product, reassociated) — tests pin this.
+
+#: the fixed Miller schedule: bits of |x| below the leading one
+_X_BITS = bin(abs(X_PARAM))[3:]
+
+#: q -> line coefficients, one entry per consumed schedule slot
+_G2_PRECOMP: dict = {}
+_G2_PRECOMP_MAX = 1024
+
+
+def _miller_ops() -> _Ops:
+    return _Ops(
+        fp12_add,
+        fp12_sub,
+        fp12_mul,
+        fp12_inv,
+        lambda v: fp12_sub(FP12_ZERO, v),
+        lambda v, k: fp12_mul(v, fp12_from_small(k)),
+    )
+
+
+def _line_coeffs(ops: _Ops, t, s):
+    """(lam, lam*xt - yt) of the line through t and s — everything the
+    per-point evaluation needs; (None, xt) for a vertical line."""
+    xt, yt = t
+    if t == s:
+        num = ops.small(ops.mul(xt, xt), 3)
+        den = ops.small(yt, 2)
+    else:
+        xs, ys = s
+        if xt == xs:
+            return (None, xt)
+        num = ops.sub(ys, yt)
+        den = ops.sub(xs, xt)
+    lam = ops.mul(num, ops.inv(den))
+    return (lam, ops.sub(ops.mul(lam, xt), yt))
+
+
+def g2_precompute(q) -> list:
+    """Line coefficients of the full Miller schedule for G2 point ``q``,
+    cached by point. One-time cost ~ one miller_loop; afterwards every
+    pairing against ``q`` evaluates inversion-free."""
+    hit = _G2_PRECOMP.get(q)
+    if hit is not None:
+        return hit
+    ops = _miller_ops()
+    qe = _untwist(q)
+    t = qe
+    coeffs = []
+    for bit in _X_BITS:
+        coeffs.append(_line_coeffs(ops, t, t))
+        t = _ec_double(ops, t)
+        if bit == "1":
+            coeffs.append(_line_coeffs(ops, t, qe))
+            t = _ec_add(ops, t, qe)
+    if len(_G2_PRECOMP) >= _G2_PRECOMP_MAX:
+        _G2_PRECOMP.clear()
+    _G2_PRECOMP[q] = coeffs
+    return coeffs
+
+
+def _fp12_scale_fp(x, s: int):
+    """x * s for an Fp scalar s — 12 base-field mults, no tower mults."""
+    (a0, a1, a2), (b0, b1, b2) = x
+    return (
+        (
+            (a0[0] * s % P, a0[1] * s % P),
+            (a1[0] * s % P, a1[1] * s % P),
+            (a2[0] * s % P, a2[1] * s % P),
+        ),
+        (
+            (b0[0] * s % P, b0[1] * s % P),
+            (b1[0] * s % P, b1[1] * s % P),
+            (b2[0] * s % P, b2[1] * s % P),
+        ),
+    )
+
+
+def _line_eval(lam, c, xp: int, yp: int):
+    """The precomputed line at affine G1 point (xp, yp):
+    yp + (lam*xt - yt) - lam*xp, or xp - xt for a vertical line."""
+    if lam is None:
+        # c is xt: ell = emb(xp) - xt
+        (a0, a1, a2), b = fp12_sub(FP12_ZERO, c)
+        return (((((a0[0] + xp) % P), a0[1]), a1, a2), b)
+    (a0, a1, a2), b = fp12_sub(c, _fp12_scale_fp(lam, xp))
+    return (((((a0[0] + yp) % P), a0[1]), a1, a2), b)
+
+
+def multi_pairing_check(pairs: Sequence[Tuple[object, object]]) -> bool:
+    """pairing_check via per-G2-key precomputed lines, a shared
+    accumulator (one squaring per schedule bit for the whole product)
+    and one shared final exponentiation. Bit-identical verdicts to
+    :func:`pairing_check`; ~20x cheaper per marginal pair on host."""
+    evs = []
+    for p, q in pairs:
+        if p is None or q is None:
+            continue  # identity factor contributes 1, as in miller_loop
+        evs.append((p[0] % P, p[1] % P, g2_precompute(q)))
+    if not evs:
+        return True
+    f = FP12_ONE
+    idx = 0
+    for bit in _X_BITS:
+        f = fp12_sqr(f)
+        for xp, yp, coeffs in evs:
+            lam, c = coeffs[idx]
+            f = fp12_mul(f, _line_eval(lam, c, xp, yp))
+        idx += 1
+        if bit == "1":
+            for xp, yp, coeffs in evs:
+                lam, c = coeffs[idx]
+                f = fp12_mul(f, _line_eval(lam, c, xp, yp))
+            idx += 1
+    if X_PARAM < 0:
+        f = fp12_conj(f)
+    return final_exponentiation(f) == FP12_ONE
+
+
+def g1_sum(points) -> object:
+    """Affine sum of G1 points (None = identity) — the host fallback for
+    certificate signature aggregation (an all-ones MSM)."""
+    acc = None
+    for p in points:
+        acc = g1_add(acc, p)
+    return acc
+
+
+# --- serialization (internal format: affine, uncompressed-ish) -------------
+
+
+def g1_compress(p1) -> bytes:
+    """48-byte x with 2 flag bits (internal format, zcash-style layout)."""
+    if p1 is None:
+        return bytes([0xC0] + [0] * 47)
+    x, y = p1
+    flag = 0x80 | (0x20 if y > (P - 1) // 2 else 0)
+    data = bytearray(x.to_bytes(48, "big"))
+    data[0] |= flag
+    return bytes(data)
+
+
+def g1_decompress(data: bytes):
+    """Inverse of g1_compress. Returns None on malformed input (callers
+    treat None as a rejected share)."""
+    if len(data) != 48 or not data[0] & 0x80:
+        return None
+    if data[0] & 0x40:
+        # compressed infinity: never a valid signature (sk == 0), reject
+        return None
+    big_y = bool(data[0] & 0x20)
+    x = int.from_bytes(bytes([data[0] & 0x1F]) + data[1:], "big")
+    if x >= P:
+        return None
+    y2 = (x * x * x + 4) % P
+    y = pow(y2, (P + 1) // 4, P)  # p == 3 (mod 4)
+    if y * y % P != y2:
+        return None
+    if (y > (P - 1) // 2) != big_y:
+        y = P - y
+    return (x, y)
+
+
+#: G1 cofactor-clearing multiplier h1 = (x_param - 1)^2 // 3
+_H1_COFACTOR = (X_PARAM - 1) ** 2 // 3
+
+# hash_to_g1 memo — a hand-rolled LRU (was functools.lru_cache) so the
+# batched signer can consult it without recomputing and so cache behavior
+# is observable: hit/miss totals surface in the metrics snapshot
+# (hash_g1_cache_hits / hash_g1_cache_misses).
+_H2G1_CACHE: "collections.OrderedDict[tuple, tuple]" = collections.OrderedDict()
+_H2G1_CACHE_MAX = 256
+_H2G1_STATS = {"hits": 0, "misses": 0}
+
+
+def hash_g1_cache_stats() -> dict:
+    """Process-global hash_to_g1 cache counters (cumulative)."""
+    return dict(_H2G1_STATS)
+
+
+def hash_g1_cache_clear() -> None:
+    _H2G1_CACHE.clear()
+    _H2G1_STATS["hits"] = 0
+    _H2G1_STATS["misses"] = 0
+
+
+def _h2g1_lookup(msg: bytes, domain: bytes):
+    hit = _H2G1_CACHE.get((msg, domain))
+    if hit is not None:
+        _H2G1_CACHE.move_to_end((msg, domain))
+        _H2G1_STATS["hits"] += 1
+        return hit
+    _H2G1_STATS["misses"] += 1
+    return None
+
+
+def _h2g1_store(msg: bytes, domain: bytes, pt: tuple) -> None:
+    if len(_H2G1_CACHE) >= _H2G1_CACHE_MAX:
+        _H2G1_CACHE.popitem(last=False)
+    _H2G1_CACHE[(msg, domain)] = pt
+
+
+def _hash_candidate_x(msg: bytes, domain: bytes, ctr: int) -> int:
+    """The try-and-increment field candidate H(domain || ctr || msg) mod p
+    — the per-row host half of the split map (SHA stays on host, the
+    square-root/ladder half batches on a backend)."""
+    h = hashlib.sha512(domain + ctr.to_bytes(4, "little") + msg).digest()
+    return int.from_bytes(h, "big") % P
+
+
+def hash_to_g1(msg: bytes, domain: bytes = b"dagrider-coin-v1") -> tuple:
+    """Try-and-increment hash onto the r-torsion of E(Fp).
+
+    Internal-protocol map (deterministic, constant participants): take
+    x = H(domain || ctr || msg) mod p until x^3 + 4 is square, pick the
+    smaller root for determinism, then clear the cofactor by multiplying
+    with h1 = (x-1)^2 / 3 ... here simply multiply by the G1 cofactor.
+
+    LRU-cached: a pure ~2.3 ms map, and every share signer / verifier of
+    a wave hashes the SAME wave tag (n redundant computations per wave
+    in a committee; bounded cache — tags are per-wave, 256 covers any
+    live window many times over).
+    """
+    hit = _h2g1_lookup(msg, domain)
+    if hit is not None:
+        return hit
+    ctr = 0
+    while True:
+        x = _hash_candidate_x(msg, domain, ctr)
+        y2 = (x * x * x + 4) % P
+        y = pow(y2, (P + 1) // 4, P)
+        if y * y % P == y2:
+            y = min(y, P - y)
+            pt = (x, y)
+            cleared = _ec_mul_raw(_FP_OPS, _H1_COFACTOR, pt)
+            if cleared is not None:
+                _h2g1_store(msg, domain, cleared)
+                return cleared
+        ctr += 1
+
+
+def _ec_mul_raw(ops: _Ops, k: int, p1):
+    """Scalar mult WITHOUT reducing k mod R (cofactor clearing operates on
+    points outside the r-torsion, where mod-R reduction is invalid).
+    Jacobian ladder — one inversion total, like :func:`_ec_mul`; the
+    Jacobian formulas hold for any point on the curve, independent of its
+    order."""
+    if k < 0:
+        k = -k
+        p1 = (p1[0], ops.neg(p1[1]))
+    if k == 0 or p1 is None:
+        return None
+    if ops is _FP_OPS:
+        zero, one = 0, 1
+    else:
+        zero, one = FP2_ZERO, FP2_ONE
+    acc = None
+    for bit in range(k.bit_length() - 1, -1, -1):
+        if acc is not None:
+            acc = _jac_double(ops, acc)
+            if acc is not None and acc[2] == zero:
+                # Doubling a point of even order lands on the Jacobian
+                # identity (Z == 0); collapse it to the None convention
+                # before a mixed addition could read the garbage X/Y.
+                # (Both BLS12-381 cofactors are odd, so this is a
+                # safety rail for arbitrary-point callers, not a path
+                # current inputs reach.)
+                acc = None
+        if (k >> bit) & 1:
+            if acc is None:
+                acc = (p1[0], p1[1], one)
+            else:
+                acc = _jac_madd(ops, acc, p1, zero)
+    return _jac_to_affine(ops, acc, zero)
+
+
+def g2_serialize(p1) -> bytes:
+    """192-byte uncompressed affine G2 point (internal key-file format:
+    x.c1 || x.c0 || y.c1 || y.c0, big-endian 48-byte Fp each; identity is
+    all-zero). Uncompressed by choice — decompression would need an Fp2
+    square root, and public keys live in our own key files, not on the
+    wire."""
+    if p1 is None:
+        return bytes(192)
+    (x0, x1), (y0, y1) = p1
+    return (
+        x1.to_bytes(48, "big")
+        + x0.to_bytes(48, "big")
+        + y1.to_bytes(48, "big")
+        + y0.to_bytes(48, "big")
+    )
+
+
+def g2_deserialize(data: bytes):
+    """Inverse of g2_serialize; validates field range and curve membership.
+    Returns None for the identity encoding; raises ValueError on junk."""
+    if len(data) != 192:
+        raise ValueError("G2 point must be 192 bytes")
+    if data == bytes(192):
+        return None
+    vals = [int.from_bytes(data[i * 48 : (i + 1) * 48], "big") for i in range(4)]
+    if any(v >= P for v in vals):
+        raise ValueError("G2 coordinate out of field range")
+    x1, x0, y1, y0 = vals
+    pt = ((x0, x1), (y0, y1))
+    if not g2_on_curve(pt):
+        raise ValueError("point not on the G2 curve")
+    # r-order subgroup check: the twist's cofactor is huge, and a
+    # non-subgroup "public key" would silently corrupt pairing-based
+    # share verification (small-subgroup structure) instead of failing
+    # loudly here. [r]P must be the identity. (_ec_mul reduces mod r, so
+    # the raw ladder is required.)
+    if _ec_mul_raw(_FP2_OPS, R, pt) is not None:
+        raise ValueError("G2 point not in the r-order subgroup")
+    return pt
+
+
+# --- BLS signatures (minimal-signature-size: sig in G1, pk in G2) ----------
+
+
+def sign(sk: int, msg: bytes) -> bytes:
+    """sigma = sk * H(msg) in G1, compressed to 48 bytes."""
+    return g1_compress(g1_mul(sk, hash_to_g1(msg)))
+
+
+def sign_many(
+    sks: Sequence[int],
+    msgs: Sequence[bytes],
+    domain: bytes = b"dagrider-coin-v1",
+) -> List[bytes]:
+    """Batched `sign` — byte-for-byte [sign(sk, m) for sk, m in zip(...)].
+
+    Only the host path is ported: the native (cffi) and device
+    (``ops/bls_g1.py``) lanes of the JAX package are later work.
+    """
+    sks = list(sks)
+    msgs = list(msgs)
+    if len(sks) != len(msgs):
+        raise ValueError("sign_many: sks and msgs length mismatch")
+    return [
+        g1_compress(g1_mul(sk, hash_to_g1(m, domain)))
+        for sk, m in zip(sks, msgs)
+    ]
+
+
+def pk_of(sk: int):
+    return g2_mul(sk, G2_GEN)
+
+
+def verify(pk_g2, msg: bytes, sig: bytes) -> bool:
+    """e(sigma, g2) == e(H(msg), pk)  <=>  e(sigma, -g2) e(H(m), pk) == 1."""
+    s = g1_decompress(sig)
+    if s is None:
+        return False
+    return pairing_check(
+        [(s, g2_neg(G2_GEN)), (hash_to_g1(msg), pk_g2)]
+    )

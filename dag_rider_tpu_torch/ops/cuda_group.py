@@ -59,23 +59,24 @@ def lib() -> ctypes.CDLL:
 
 
 def check_operand(t: torch.Tensor, rows: int, name: str) -> None:
-    """Kernel operands: int32 [rows, N] with contiguous lanes."""
+    """Kernel operands: int32 [rows, N] with contiguous lanes (any lane
+    stride when N == 1)."""
     if t.dtype != torch.int32:
         raise TypeError(f"{name}: expected int32, got {t.dtype}")
     if t.dim() != 2 or t.shape[0] != rows:
         raise ValueError(f"{name}: expected shape [{rows}, N], got {tuple(t.shape)}")
-    if t.stride(1) != 1:
+    if t.shape[1] > 1 and t.stride(1) != 1:
         raise ValueError(f"{name}: lanes must be contiguous (stride(1) == 1)")
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {t.device}")
 
 
-def launch(fn_name: str, device: torch.device, *args) -> None:
-    """Call a C entry point on ``device``'s current stream; raise on a
-    launch error."""
+def launch(fn_name: str, device: torch.device, *args, handle=None) -> None:
+    """Call a C entry point of ``handle`` (default: this module's library)
+    on ``device``'s current stream; raise on a launch error."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib(), fn_name)(*args, stream)
+        rc = getattr(handle or lib(), fn_name)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{fn_name}: CUDA launch failed with error {rc}")
 
