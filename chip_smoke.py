@@ -146,9 +146,12 @@ def main() -> int:
           f"{imad_per_s / 1e12:.2f} T/s")
 
     # -- build ------------------------------------------------------------
-    t0 = time.perf_counter()
-    build.build_all()
-    per_source = ", ".join(f"{k} {v:.1f} s" for k, v in build.last_build_times.items())
+    t0, wall0 = time.perf_counter(), time.time()
+    libs = build.build_all()
+    # each library is the file its own nvcc wrote last, so its mtime marks
+    # the end of that source's compile (the sources compile in parallel)
+    per_source = ", ".join(f"{stem} {so.stat().st_mtime - wall0:.1f} s"
+                           for stem, so in libs.items() if so.stat().st_mtime >= wall0)
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc {build.last_build_s:.1f} s, "
           f"in parallel: {per_source or 'nothing to build'})")
     for stem in ("ed25519_group", "bls381_group"):
@@ -417,7 +420,7 @@ def bls_phases(dev, imad_per_s: float) -> dict:
         nib, px, py, pz = (torch.from_numpy(a).to(dev)
                            for a in bls_msm.pack_inputs(scalars, pts, t))
         lm = torch.cat([px, py, pz], dim=-1).t().contiguous()
-        tables = bls_msm.point_tables_packed(lm)
+        tables = bls_msm._point_tables(lm)
         lanes = bls_msm.gather_windows(nib, tables)
         msm_inputs[name] = {"scalars": scalars, "points": pts, "t": t, "nib": nib,
                             "lm": lm, "tables": tables, "lanes": lanes}
@@ -462,10 +465,19 @@ def bls_phases(dev, imad_per_s: float) -> dict:
            **widths[cert_width], "library_ms": None, "lanes": cert_width,
            "widths": {str(k): v for k, v in widths.items()}}
 
-    # -- coin path: n = 256, f + 1 = 86 shares, one honest wave ----------------
-    def coin_wave(wave):
+    # -- coin path: n = 256, f + 1 = 86 shares, an honest and a Byzantine wave --
+    def coin_wave(wave, want_sizes):
+        """One wave through a card coin and a host coin; the card coin's
+        MSMs must have the sizes ``want_sizes`` lists, in order, and the
+        wave must launch exactly the additions those MSMs hold."""
+        sizes = []
+
+        def card_msm(scalars, points):
+            sizes.append(len(points))
+            return bls_msm.msm(scalars, points)
+
         host = ThresholdCoin(keys, 0, BLS_N)
-        card = ThresholdCoin(keys, 0, BLS_N, msm=bls_msm.msm)
+        card = ThresholdCoin(keys, 0, BLS_N, msm=card_msm)
         for coin in (host, card):
             for src, share in waves[wave].items():
                 coin.observe_share(wave, src, share)
@@ -487,22 +499,29 @@ def bls_phases(dev, imad_per_s: float) -> dict:
         if leader != host.choose_leader(wave) or card.filtered != host.filtered:
             fail(f"coin wave {wave}: leader {leader} / filtered {card.filtered} differ "
                  f"from the host coin's {host.choose_leader(wave)} / {host.filtered}")
+        want = sum(msm_launches(bls_msm._pad(n)) for n in want_sizes)
+        if sizes != want_sizes or launches != want:
+            fail(f"coin wave {wave}: MSMs of {sizes} points with {launches} padd381 "
+                 f"launches, want {want_sizes} with {want}")
         print(f"coin wave {wave} (n {BLS_N}, threshold {BLS_THRESHOLD}): sigma "
               f"{card._sigma[wave].hex()[:16]}... and leader {leader} equal to the host "
-              f"coin; filtered {card.filtered}; padd381 launches {launches}; ready() "
+              f"coin; filtered {card.filtered}; MSMs of {sizes} points, padd381 "
+              f"launches {launches}; ready() "
               f"{wall * 1e3:.1f} ms on the card path, {host_wall * 1e3:.1f} ms host")
         return card.filtered, launches
 
-    coin_t, cert_t = msm_inputs["coin"]["t"], msm_inputs["certificate"]["t"]
-    filtered, coin_launches = coin_wave(1)
-    if filtered != 0 or coin_launches != msm_launches(coin_t):
-        fail(f"honest coin wave: filtered {filtered}, launches {coin_launches} "
-             f"(want 0, {msm_launches(coin_t)})")
-    filtered, byz_launches = coin_wave(2)
+    cert_t = msm_inputs["certificate"]["t"]
+    # an honest wave: one Lagrange MSM over f + 1 shares
+    filtered, coin_launches = coin_wave(1, [BLS_THRESHOLD])
+    if filtered != 0:
+        fail(f"honest coin wave: filtered {filtered}, want 0")
+    # one bad share: the first aggregate fails its check, then the filter's
+    # RLC MSM over all n shares, its x-weighted MSM that localizes the bad
+    # one, the RLC MSM over the other n - 1, and the aggregate of f + 1
+    filtered, byz_launches = coin_wave(
+        2, [BLS_THRESHOLD, BLS_N, BLS_N, BLS_N - 1, BLS_THRESHOLD])
     if filtered != 1:
         fail(f"Byzantine coin wave: filtered {filtered}, want 1")
-    if byz_launches == 0:
-        fail("the Byzantine coin wave launched no padd381_xx")
 
     # -- certificate path: n = 256, 2f + 1 = 171 signatures --------------------
     cv = CertVerifier(reg, CERT_QUORUM, msm="device")
@@ -544,14 +563,14 @@ def bls_phases(dev, imad_per_s: float) -> dict:
             walls.append(time.perf_counter() - t0)
         if res != bls.g1_msm(scalars, pts):
             fail(f"{name} MSM differs from the host group law")
-        w = G.tree_sum_lanes(lanes, t)
-        acc = bls_msm.horner_packed(w)
+        w = G.tree_sum_xyz381(lanes, t)
+        acc = bls_msm.horner_combine(w)
         xyz = torch.stack([acc[:F.LIMBS, 0], acc[F.LIMBS:2 * F.LIMBS, 0], acc[2 * F.LIMBS:, 0]])
         split = {
-            "tables": cuda_ms(lambda: bls_msm.point_tables_packed(lm), 5),
+            "tables": cuda_ms(lambda: bls_msm._point_tables(lm), 5),
             "gather": cuda_ms(lambda: bls_msm.gather_windows(nib, tables), 5),
-            "tree": cuda_ms(lambda: G.tree_sum_lanes(lanes, t), 5),
-            "horner": cuda_ms(lambda: bls_msm.horner_packed(w), 3, 1),
+            "tree": cuda_ms(lambda: G.tree_sum_xyz381(lanes, t), 5),
+            "horner": cuda_ms(lambda: bls_msm.horner_combine(w), 3, 1),
             "canonical": cuda_ms(lambda: F.canonical(xyz), 3, 1),
         }
         parts = ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())

@@ -9,18 +9,20 @@ common coin) and of round-certificate aggregation (``CertVerifier`` with
   limbs, fold-matrix reduction).
 - Group law: the Renes-Costello-Batina complete addition (eprint
   2015/1060, Algorithm 7, a = 0, b3 = 12) in homogeneous projective
-  coordinates: no exceptional cases, no data-dependent control flow.
+  coordinates: no exceptional cases, no data-dependent control flow
+  (``cuda_group381.padd``, re-exported here as :func:`padd`).
 - MSM shape: radix-16 tables of 0..15 multiples per point (15 additions
   over T lanes), one gather of every window's digit entry ([T, 64]), a
   pairwise tree over the point axis (log2 T additions over 64 T / 2 lanes
   and down), then the Horner combination of the 64 window sums (4
   doublings + 1 addition per window on one point: 320 additions).
 
-Every addition of :func:`msm_kernel` goes through
-``cuda_group381.padd381_xx`` on limb-major [99, N] operands: the
-hand-written kernel for CUDA tensors, :func:`padd` for CPU tensors. The
-raw limbs equal the JAX ``msm_kernel``'s. The gather and the final
-``canonical`` are plain torch, as they are plain jnp in the JAX package.
+Points are limb-major [99, N] int32 (rows: X, Y, Z x 33 limbs), and
+every addition of :func:`msm_kernel` goes through
+``cuda_group381.padd381_xx``: the hand-written kernel for CUDA tensors,
+:func:`padd` for CPU tensors. The raw limbs equal the JAX
+``msm_kernel``'s. The gather and the final ``canonical`` are plain
+torch, as they are plain jnp in the JAX package.
 
 Scalars are taken mod r on the host; points arrive as host affine tuples
 (from ``bls12381.g1_decompress``) and return as one host affine tuple.
@@ -43,7 +45,8 @@ WINDOWS = 64  # 256-bit scalar capacity in 4-bit windows (r is 255 bits)
 L = F.LIMBS
 ROWS = G.ROWS  # 99
 
-Point = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # homogeneous (X, Y, Z)
+Point = G.Point  # homogeneous (X, Y, Z) coordinate tensors [..., 33]
+padd = G.padd  # the complete addition; plain version of padd381_xx
 
 
 def resolve_device(device=None) -> torch.device:
@@ -58,93 +61,27 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def identity(shape=(), device=None) -> Point:
-    """The group identity (0 : 1 : 0)."""
-    zero = F.const("ZERO", torch.device(device or "cpu")).expand(*shape, L)
-    one = F.const("ONE", zero.device).expand(*shape, L)
-    return (zero.clone(), one.clone(), zero.clone())
-
-
-def padd(p: Point, q: Point) -> Point:
-    """Complete addition, RCB15 Algorithm 7 (a = 0, b3 = 12): 12M + 2m.
-    Plain torch; the plain version of the kernel."""
-    X1, Y1, Z1 = p
-    X2, Y2, Z2 = q
-    t0 = F.mul(X1, X2)
-    t1 = F.mul(Y1, Y2)
-    t2 = F.mul(Z1, Z2)
-    t3 = F.mul(F.add(X1, Y1), F.add(X2, Y2))
-    t3 = F.sub(t3, F.add(t0, t1))
-    t4 = F.mul(F.add(Y1, Z1), F.add(Y2, Z2))
-    t4 = F.sub(t4, F.add(t1, t2))
-    x3 = F.mul(F.add(X1, Z1), F.add(X2, Z2))
-    y3 = F.sub(x3, F.add(t0, t2))
-    x3 = F.add(F.add(t0, t0), t0)  # 3 X1 X2
-    t2 = F.mul_small(t2, 12)  # b3 Z1 Z2
-    z3 = F.add(t1, t2)
-    t1 = F.sub(t1, t2)
-    y3 = F.mul_small(y3, 12)  # b3 (X1 Z2 + X2 Z1)
-    X3 = F.sub(F.mul(t3, t1), F.mul(t4, y3))
-    Y3 = F.add(F.mul(y3, x3), F.mul(t1, z3))
-    Z3 = F.add(F.mul(z3, t4), F.mul(x3, t3))
-    return (X3, Y3, Z3)
-
-
-def pdouble(p: Point) -> Point:
-    """Doubling via the complete formula (P + P is a valid input to it)."""
-    return padd(p, p)
-
-
-def pselect(cond: torch.Tensor, p: Point, q: Point) -> Point:
-    return tuple(F.select(cond, a, b) for a, b in zip(p, q))
-
-
-# ---------------------------------------------------------------------------
-# Limb-major packing: a point batch [..., 33] x 3 <-> [99, N]
-# ---------------------------------------------------------------------------
-
-
-def pack(p: Point) -> torch.Tensor:
-    """Point coords [..., 33] -> contiguous limb-major [99, N]."""
-    return torch.cat(p, dim=-1).reshape(-1, ROWS).t().contiguous()
-
-
-def unpack(x: torch.Tensor, lead=None) -> Point:
-    """Limb-major [99, N] -> point coords [*lead, 33] (default [N, 33])."""
-    lead = (x.shape[1],) if lead is None else tuple(lead)
-    xt = x.t()
-    return tuple(xt[:, c * L : (c + 1) * L].reshape(*lead, L) for c in range(3))
-
-
-def _identity_packed(n: int, device: torch.device) -> torch.Tensor:
+def identity(n: int, device) -> torch.Tensor:
+    """n copies of the group identity (0 : 1 : 0), limb-major [99, n]."""
     x = torch.zeros((ROWS, n), dtype=torch.int32, device=device)
     x[L] = 1  # Y limb 0
     return x
 
 
 # ---------------------------------------------------------------------------
-# Windowed scalar multiplication + tree-sum MSM
+# Windowed tree-sum MSM on limb-major [99, N] points
 # ---------------------------------------------------------------------------
 
 
-def point_tables_packed(x: torch.Tensor) -> torch.Tensor:
-    """Radix-16 multiples [0..15]P of packed points [99, N] -> [16, 99, N]
-    (15 additions over N lanes, each from the previous entry)."""
-    prev = _identity_packed(x.shape[1], x.device)
+def _point_tables(x: torch.Tensor) -> torch.Tensor:
+    """Radix-16 multiples [0..15]P of packed points [99, T] -> [16, 99, T]
+    (15 additions over T lanes, each from the previous entry)."""
+    prev = identity(x.shape[1], x.device)
     steps = [prev]
     for _ in range(15):
         prev = G.padd381_xx(prev, x)
         steps.append(prev)
     return torch.stack(steps)
-
-
-def _point_tables(p: Point) -> Tuple[torch.Tensor, ...]:
-    """Radix-16 multiples [0..15]P per point: coords [..., 16, 33]."""
-    lead = p[0].shape[:-1]
-    tab = point_tables_packed(pack(p)).permute(2, 0, 1)  # [N, 16, 99]
-    return tuple(
-        tab[..., c * L : (c + 1) * L].reshape(*lead, 16, L) for c in range(3)
-    )
 
 
 def gather_windows(nibbles: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
@@ -158,72 +95,26 @@ def gather_windows(nibbles: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
     return ent.reshape(t * WINDOWS, ROWS).t().contiguous()
 
 
-def scalar_mul(nibbles: torch.Tensor, p: Point) -> Point:
-    """[k]P — 4-bit fixed windows, MSB first, batched over leading dims.
-
-    nibbles: int32[..., 64], little-endian. (The MSM path uses
-    :func:`window_sums`; this per-point ladder serves single-scalar
-    consumers and differential tests.)"""
-    lead = p[0].shape[:-1]
-    x = pack(p)
-    n = x.shape[1]
-    tab = point_tables_packed(x).permute(2, 0, 1)  # [N, 16, 99]
-    nib = nibbles.reshape(n, WINDOWS).long()
-    lanes = torch.arange(n, device=x.device)
-    acc = _identity_packed(n, x.device)
-    for i in range(WINDOWS):
-        for _ in range(4):
-            acc = G.padd381_xx(acc, acc)
-        entry = tab[lanes, nib[:, WINDOWS - 1 - i]].t().contiguous()
-        acc = G.padd381_xx(acc, entry)
-    return unpack(acc, lead)
-
-
-def window_sums(nibbles: torch.Tensor, p: Point) -> Point:
-    """Per-window partial sums S_w = sum_i [d_{i,w}] P_i, coords [64, 33].
+def window_sums(nibbles: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Per-window partial sums S_w = sum_i [d_{i,w}] P_i of packed points
+    [99, T] -> [99, 64].
 
     Radix-16 tables per point, one gather of every window's digit entry
     ([T, 64]), then a pairwise tree over the point axis
-    (``cuda_group381.tree_sum_lanes``). T must be a power of two."""
-    tables = point_tables_packed(pack(p))
-    lanes = gather_windows(nibbles, tables)
-    return unpack(G.tree_sum_lanes(lanes, nibbles.shape[0]))
+    (``cuda_group381.tree_sum_xyz381``). T must be a power of two."""
+    lanes = gather_windows(nibbles, _point_tables(x))
+    return G.tree_sum_xyz381(lanes, nibbles.shape[0])
 
 
-def horner_packed(w: torch.Tensor) -> torch.Tensor:
+def horner_combine(w: torch.Tensor) -> torch.Tensor:
     """sum_w 16^w S_w from packed window sums [99, 64] -> [99, 1]: 4
     doublings + 1 addition per window on a single point."""
-    acc = _identity_packed(1, w.device)
+    acc = identity(1, w.device)
     for i in range(WINDOWS):
         for _ in range(4):
             acc = G.padd381_xx(acc, acc)
         j = WINDOWS - 1 - i
         acc = G.padd381_xx(acc, w[:, j : j + 1])
-    return acc
-
-
-def horner_combine(wsums: Point) -> Point:
-    """sum_w 16^w S_w from [64, 33] window sums -> one point [33]."""
-    return unpack(horner_packed(pack(wsums)), ())
-
-
-def tree_reduce(acc: Point) -> Point:
-    """Pairwise-fold a [t, ...] point batch to [1, ...] with the plain
-    :func:`padd` — any t >= 1 (odd counts carry their last element into
-    the next level). The plain version of ``tree_sum_xyz381``."""
-    t = acc[0].shape[0]
-    while t > 1:
-        half = t // 2
-        folded = padd(
-            tuple(c[:half] for c in acc),
-            tuple(c[half : 2 * half] for c in acc),
-        )
-        if t % 2:
-            folded = tuple(
-                torch.cat([fc, c[2 * half :]], dim=0) for fc, c in zip(folded, acc)
-            )
-        acc = folded
-        t = half + t % 2
     return acc
 
 
@@ -235,10 +126,8 @@ def msm_kernel(
     nibbles: int32[T, 64]; px/py/pz: int32[T, 33], all on one device. Pad
     slots use scalar 0 (maps to the identity). Returns one projective
     point (X, Y, Z) [33]: 15 + log2 T + 320 additions."""
-    t = nibbles.shape[0]
     pts = torch.cat([px, py, pz], dim=-1).t().contiguous()  # [99, T]
-    lanes = gather_windows(nibbles, point_tables_packed(pts))
-    acc = horner_packed(G.tree_sum_lanes(lanes, t))
+    acc = horner_combine(window_sums(nibbles, pts))
     return acc[0:L, 0], acc[L : 2 * L, 0], acc[2 * L :, 0]
 
 

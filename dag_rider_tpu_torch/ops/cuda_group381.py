@@ -12,14 +12,15 @@ The MSM (:mod:`dag_rider_tpu_torch.ops.bls_msm`) routes every addition
 through :func:`padd381_xx`: the 15 table steps, the log2 T tree levels and
 the 320 Horner steps. Each wrapper takes its plain torch version for a CPU
 tensor and launches its kernel for a CUDA tensor; there is no other path.
-``LAUNCHES`` counts kernel launches.
+The plain version is :func:`padd`, the complete addition on coordinate
+tensors. ``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import math
+from typing import Tuple
 
 import torch
 
@@ -36,6 +37,8 @@ LAUNCHES = {"padd381_xx": 0}
 
 _P, _N = ctypes.c_void_p, ctypes.c_longlong
 
+Point = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # homogeneous (X, Y, Z)
+
 
 def reset_launches() -> None:
     LAUNCHES["padd381_xx"] = 0
@@ -51,14 +54,38 @@ def lib() -> ctypes.CDLL:
     return handle
 
 
+def padd(p: Point, q: Point) -> Point:
+    """Complete addition, RCB15 Algorithm 7 (a = 0, b3 = 12): 12M + 2m,
+    on coordinate tensors [..., 33]. Plain torch; the kernel's body."""
+    X1, Y1, Z1 = p
+    X2, Y2, Z2 = q
+    t0 = F.mul(X1, X2)
+    t1 = F.mul(Y1, Y2)
+    t2 = F.mul(Z1, Z2)
+    t3 = F.mul(F.add(X1, Y1), F.add(X2, Y2))
+    t3 = F.sub(t3, F.add(t0, t1))
+    t4 = F.mul(F.add(Y1, Z1), F.add(Y2, Z2))
+    t4 = F.sub(t4, F.add(t1, t2))
+    x3 = F.mul(F.add(X1, Z1), F.add(X2, Z2))
+    y3 = F.sub(x3, F.add(t0, t2))
+    x3 = F.add(F.add(t0, t0), t0)  # 3 X1 X2
+    t2 = F.mul_small(t2, 12)  # b3 Z1 Z2
+    z3 = F.add(t1, t2)
+    t1 = F.sub(t1, t2)
+    y3 = F.mul_small(y3, 12)  # b3 (X1 Z2 + X2 Z1)
+    X3 = F.sub(F.mul(t3, t1), F.mul(t4, y3))
+    Y3 = F.add(F.mul(y3, x3), F.mul(t1, z3))
+    Z3 = F.add(F.mul(z3, t4), F.mul(x3, t3))
+    return (X3, Y3, Z3)
+
+
 def padd381_xx_plain(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """Plain version: ``bls_msm.padd`` on limb-major [99, N] operands."""
-    from dag_rider_tpu_torch.ops import bls_msm
+    """Plain version: :func:`padd` on limb-major [99, N] operands."""
 
     def coords(x):
         return tuple(x[c * L : (c + 1) * L].t() for c in range(COORDS))
 
-    out = bls_msm.padd(coords(p), coords(q))
+    out = padd(coords(p), coords(q))
     return torch.cat(out, dim=-1).t().contiguous()
 
 
@@ -81,30 +108,21 @@ def padd381_xx(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def tree_sum_lanes(x: torch.Tensor, m: int) -> torch.Tensor:
-    """Halve [99, m * flat] (lane = i * flat + f) log2(m) times with
-    :func:`padd381_xx`, pairing the first half of the lanes with the
-    second -> [99, flat]. m must be a power of two."""
+def tree_sum_xyz381(x: torch.Tensor, m: int) -> torch.Tensor:
+    """Sum m packed XYZ points per element: limb-major [99, m * flat]
+    (lane = i * flat + f) -> [99, flat], halving the lane axis log2(m)
+    times with :func:`padd381_xx` (first half of the lanes paired with the
+    second, as the JAX tree pairs them). m must be a power of two;
+    identity (0:1:0) entries are harmless padding.
+
+    The JAX wrapper takes [..., M, 3, 33] and transposes in and out; here
+    the caller hands over the limb-major layout its gather already
+    writes."""
     if m < 1 or m & (m - 1) or x.shape[1] % m:
-        raise ValueError(f"tree_sum_lanes: m = {m} over {x.shape[1]} lanes")
+        raise ValueError(f"tree_sum_xyz381: m = {m} over {x.shape[1]} lanes")
     flat = x.shape[1] // m
     while m > 1:
         half = m // 2 * flat
         x = padd381_xx(x[:, :half], x[:, half:])
         m //= 2
     return x
-
-
-def tree_sum_xyz381(entries: torch.Tensor) -> torch.Tensor:
-    """Sum M packed XYZ points per element: [..., M, 3, 33] -> [..., 3, 33].
-
-    Lays the points out limb-major as [99, M * flat] (lane = m * flat + f),
-    then halves the lane axis log2(M) times (:func:`tree_sum_lanes`). Its
-    plain version is ``bls_msm.tree_reduce`` over the M axis, whose
-    pairing it shares. Identity (0:1:0) entries are harmless padding."""
-    *lead, m, coords, limbs = entries.shape
-    if coords != COORDS or limbs != L or m & (m - 1):
-        raise ValueError(f"expected [..., 2^k, 3, 33], got {tuple(entries.shape)}")
-    flat = math.prod(lead)
-    x = entries.reshape(flat, m, ROWS).permute(2, 1, 0).reshape(ROWS, m * flat)
-    return tree_sum_lanes(x, m).t().reshape(*lead, COORDS, L)

@@ -21,7 +21,6 @@ import os
 import shutil
 import subprocess
 import sys
-import threading
 import time
 from pathlib import Path
 from typing import Dict, List
@@ -41,10 +40,6 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 #: seconds the last :func:`build_all` spent in nvcc (0.0 when every
 #: library was already built)
 last_build_s = 0.0
-
-#: stem -> seconds from the start of the last build to its nvcc's exit
-#: (the sources compile in parallel, so the longest sets last_build_s)
-last_build_times: Dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -93,38 +88,20 @@ def build_all() -> Dict[str, Path]:
                 tmp,
                 so,
             )
-        # one waiting thread per compiler, so each source's own seconds are
-        # read when its nvcc exits
-        logs: Dict[str, tuple] = {}
-
-        def wait(stem: str, proc: subprocess.Popen) -> None:
-            log, _ = proc.communicate()
-            logs[stem] = (log, time.perf_counter() - t0)
-
-        waiters = [threading.Thread(target=wait, args=(stem, proc))
-                   for stem, (proc, _, _) in procs.items()]
-        for th in waiters:
-            th.start()
-        for th in waiters:
-            th.join()
         failed = []
-        last_build_times.clear()
         for stem, (proc, tmp, so) in procs.items():
-            log, seconds = logs[stem]
+            log, _ = proc.communicate()
             if proc.returncode != 0:
                 failed.append(f"{stem}: nvcc exited {proc.returncode}\n{log}")
                 continue
             so.with_suffix(".log").write_text(log)
             os.replace(tmp, so)
-            last_build_times[stem] = seconds
-            print(f"[build] {so.name} (nvcc {seconds:.1f} s)", *_ptxas_summary(log),
-                  sep="\n  ", file=sys.stderr)
+            print(f"[build] {so.name}", *_ptxas_summary(log), sep="\n  ", file=sys.stderr)
         last_build_s = time.perf_counter() - t0
         if failed:
             raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
     else:
         last_build_s = 0.0
-        last_build_times.clear()
     return {stem: so for stem, (_, so) in targets.items()}
 
 

@@ -43,8 +43,9 @@ class CertVerifier:
     Args:
         registry: the cluster PKI; must carry ``bls_public_keys``.
         quorum: minimum signer count a certificate must cover (2f+1).
-        msm: "host" (the group law, the oracle) or "device" (the G1 MSM of
-            ``ops.bls_msm``); bit-identical aggregates.
+        msm: "device" (the default: the G1 MSM of ``ops.bls_msm``) or
+            "host" (the group law, the oracle, only when asked for);
+            bit-identical aggregates.
         device: where a "device" MSM runs: ``cuda`` unless the caller
             passes ``"cpu"`` (the plain torch path). Raises at
             construction when CUDA is asked for and there is no card.
@@ -54,7 +55,7 @@ class CertVerifier:
         self,
         registry: KeyRegistry,
         quorum: int,
-        msm: str = "host",
+        msm: str = "device",
         device=None,
     ) -> None:
         if not registry.bls_public_keys:

@@ -48,6 +48,16 @@ def _rand_points(k, seed):
     return [jbls.g1_mul(rng.randrange(1, jbls.R)) for _ in range(k)]
 
 
+def _lm(xyz):
+    """Points int32 [k, 3, 33] -> limb-major tensor [99, k]."""
+    return _t(xyz.reshape(len(xyz), G.ROWS).T)
+
+
+def _coord(x, c):
+    """Coordinate c of limb-major points [99, ...] -> [..., 33]."""
+    return x[c * TF.LIMBS : (c + 1) * TF.LIMBS].movedim(0, -1)
+
+
 def _xyz(points):
     """Host affine points (None = identity) -> int32 [k, 3, 33]."""
     out = np.zeros((len(points), 3, TF.LIMBS), np.int32)
@@ -187,10 +197,9 @@ def test_padd381_plain_equals_pallas_core_on_rows():
     core = PG._padd381_core(rows_a, rows_b)
     want = np.concatenate(
         [np.concatenate([np.asarray(r) for r in core[c]], axis=0) for c in range(3)])
-    lm = lambda x: _t(x.transpose(1, 2, 0).reshape(G.ROWS, -1))  # [99, T]
-    got = G.padd381_xx(lm(a), lm(b))
+    got = G.padd381_xx(_lm(a), _lm(b))
     np.testing.assert_array_equal(got.numpy(), want)
-    assert torch.equal(got, G.padd381_xx_plain(lm(a), lm(b)))
+    assert torch.equal(got, G.padd381_xx_plain(_lm(a), _lm(b)))
 
 
 def test_padd381_accepts_column_slices_and_single_lanes():
@@ -208,35 +217,30 @@ def test_padd381_accepts_column_slices_and_single_lanes():
 
 @pytest.mark.parametrize("m", [1, 2, 8])
 def test_tree_sum_xyz381_equals_jax_tree_reduce(m):
-    """The tree wrapper (plain path on CPU) pairs as the JAX tree does."""
+    """The tree (plain path on CPU) pairs the lanes as the JAX tree does."""
     ent = _xyz(_rand_points(3, m) + [None] * 5)[np.arange(6 * m) % 8]
-    ent = ent.reshape(6, m, 3, TF.LIMBS)  # [flat, M, 3, 33]
-    got = G.tree_sum_xyz381(_t(ent))
-    moved = np.moveaxis(ent, 1, 0)  # [M, flat, 3, 33]
-    want = JM.tree_reduce(tuple(moved[..., c, :] for c in range(3)))
-    plain = TM.tree_reduce(tuple(_t(moved[..., c, :]) for c in range(3)))
+    ent = ent.reshape(m, 6, 3, TF.LIMBS)  # [M, flat, 3, 33]
+    x = _lm(ent.reshape(m * 6, 3, TF.LIMBS))  # lane = i * flat + f
+    got = G.tree_sum_xyz381(x, m)  # [99, flat]
+    want = JM.tree_reduce(tuple(ent[..., c, :] for c in range(3)))
     for c in range(3):
-        _eq(want[c][0], got[:, c])
-        assert torch.equal(plain[c][0], got[:, c])
+        _eq(want[c][0], _coord(got, c))
     with pytest.raises(ValueError):
-        G.tree_sum_xyz381(_t(ent[:, :1].repeat(3, axis=1)))
+        G.tree_sum_xyz381(x, 3)
 
 
 def test_tables_equal_jax():
     p = _xyz(_rand_points(2, 21) + [None])
-    pj = tuple(p[:, c] for c in range(3))
-    want = JM._point_tables(pj)
-    got = TM._point_tables(tuple(_t(p[:, c]) for c in range(3)))
-    for w, g in zip(want, got):
-        _eq(w, g)
+    want = JM._point_tables(tuple(p[:, c] for c in range(3)))  # [T, 16, 33]
+    got = TM._point_tables(_lm(p))  # [16, 99, T]
+    for c, w in enumerate(want):
+        _eq(w, _coord(got.permute(1, 2, 0), c))
 
 
 @pytest.mark.parametrize("k", [0, 1, 15, 0xDEADBEEF, jbls.R - 1])
-def test_scalar_mul_matches_host(k):
+def test_single_point_msm_matches_host(k):
     p = _rand_points(1, k % 97)[0]
-    a = _xyz([p])[0]
-    got = TM.scalar_mul(_t(JM._nibbles(k % jbls.R)), tuple(_t(a[c]) for c in range(3)))
-    assert TM.unpack_point(*got) == jbls.g1_mul(k, p)
+    assert TM.msm([k], [p], device="cpu") == jbls.g1_mul(k, p)
 
 
 # --- MSM -------------------------------------------------------------------
@@ -268,12 +272,13 @@ def test_msm_kernel_raw_limbs_equal_jax(t):
 def test_window_sums_and_horner_equal_jax():
     scalars, points = _msm_inputs(4, 40)
     nib, px, py, pz = JM.pack_inputs(scalars, points, 4)
-    want_w = JM.window_sums(jnp.asarray(nib), (px, py, pz))
-    got_w = TM.window_sums(_t(nib), (_t(px), _t(py), _t(pz)))
-    for w, g in zip(want_w, got_w):
-        _eq(w, g)
-    for w, g in zip(JM.horner_combine(want_w), TM.horner_combine(got_w)):
-        _eq(w, g)
+    want_w = JM.window_sums(jnp.asarray(nib), (px, py, pz))  # [64, 33] each
+    got_w = TM.window_sums(_t(nib), _lm(np.stack([px, py, pz], axis=1)))  # [99, 64]
+    for c, w in enumerate(want_w):
+        _eq(w, _coord(got_w, c))
+    got_h = TM.horner_combine(got_w)  # [99, 1]
+    for c, w in enumerate(JM.horner_combine(want_w)):
+        _eq(w, _coord(got_h, c)[0])
 
 
 @pytest.mark.parametrize("n", [1, 3, 5])

@@ -257,7 +257,7 @@ def test_certificate_agg_sig_equals_jax(cert_keys, msm):
 
 def test_certificate_refusals(cert_keys):
     jreg, reg, sks = cert_keys
-    cv = CertVerifier(reg, quorum=3)
+    cv = CertVerifier(reg, quorum=3, msm="host")
     entries = _entries(sks, _digests(b"q"))
     assert cv.make_certificate(1, entries[:2]) is None  # below quorum
     bad = entries[:2] + [(2, entries[2][1], b"\xff" * 48)]
@@ -273,6 +273,8 @@ def test_cert_device_msm_without_card_raises(cert_keys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         CertVerifier(reg, quorum=3, msm="device")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CertVerifier(reg, quorum=3)  # the device MSM on cuda is the default
     assert CertVerifier(reg, quorum=3, msm="device", device="cpu").device.type == "cpu"
 
 
@@ -315,7 +317,7 @@ def test_tamper_matrix_verdicts_equal_jax(cert_keys, tamper):
 
 def test_verify_many_equals_jax(cert_keys):
     jreg, reg, sks = cert_keys
-    cv, jcv = CertVerifier(reg, quorum=3), JCertVerifier(jreg, quorum=3)
+    cv, jcv = CertVerifier(reg, quorum=3, msm="host"), JCertVerifier(jreg, quorum=3)
     certs = [cv.make_certificate(r, _entries(sks, _digests(bytes([r])))[:3]) for r in (1, 2)]
     forged = TAMPERS[5](certs[1])
     batch = [certs[0], forged, certs[1]]
