@@ -20,22 +20,29 @@ signatures). The script:
    missing signature, tampered block);
 3. kernel phase: each kernel against its plain torch version on the card
    at the path's widths, exactly, timed with CUDA events beside the plain
-   version and a lower bound on the card's time;
+   version and a lower bound on the card's time: the per-lane addition
+   ``padd_xx`` (the tree's unit kernel), the one-launch comb tree
+   ``tree_sum_xyzt``, the finish tail, ``pow22523`` and the field multiply;
 4. path phase: launch counters set to 0, one ``verify_rounds`` call, the
-   counters read; the mask must equal the host oracle on the corrupted
+   counters read (one ``tree_sum_xyzt`` and one ``finish_check`` launch,
+   no ``padd_xx``); the mask must equal the host oracle on the corrupted
    rows and a seeded sample of the valid ones, and the all-plain torch
    path on the card on every row; then the dispatch time (median of
    several, host prep and device split), sigs/s, peak device memory, and
    the device time split into copies, gather, tree and finish;
-5. BLS phases: ``padd381_xx`` against its plain version on real curve
-   points at 1, 4,096, 8,192 and 65,536 lanes, exactly, timed beside its
-   bound; then, with the counters set to 0 before each and read after,
-   one coin wave (sigma and leader byte-identical to the host coin), one
-   wave with a corrupted share (the same ``filtered`` count, sigma and
-   leader as the host coin), and one certificate (``agg_sig``
-   byte-identical to the host group law, and verified by the host
-   pairing); the MSM's wall time and its device split into tables,
-   gather, tree, Horner and canonical;
+5. BLS phases: the cooperative ``padd381_xx`` against its plain version
+   on real curve points at 1, 128, 4,096, 8,192 and 65,536 lanes, and
+   ``horner381`` (the Horner chain and the canonical form in one launch)
+   against its plain version on the coin's and the certificate's real
+   window sums, exactly, timed beside their bounds; then, with the
+   counters set to 0 before each and read after, one coin wave (sigma and
+   leader byte-identical to the host coin), one wave with a corrupted
+   share (the same ``filtered`` count, sigma and leader as the host coin),
+   and one certificate (``agg_sig`` byte-identical to the host group law,
+   and verified by the host pairing), each MSM with exactly 15 + log2 T
+   ``padd381_xx`` launches and one ``horner381``; the MSM's wall time and
+   its device split into tables, gather, tree and ``horner381``, launched
+   from the host and replayed as a CUDA graph (the card's time alone);
 6. prints ``{"kernels": [...]}``, the card line again, and as the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -101,6 +108,33 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls captured in one CUDA
+    graph and replayed: the launches follow each other on the card without
+    the host's issue gaps, which set the pace of back-to-back launches of
+    a kernel shorter than its Python wrapper (tens of microseconds)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm the allocator on the capture's side stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
@@ -253,13 +287,17 @@ def main() -> int:
            cuda_ms(lambda: CG.padd_xx(p, q), 20), cuda_ms(lambda: CG.padd_xx_plain(p, q), 3, 1),
            3 * 88 * 4 * half, half * (8 * IMAD_PER_PRODUCT + 22 * d2_nnz), half)
 
+    # the whole comb tree in one launch: 2 * 4096 groups of 64 entries,
+    # 63 additions each, read from the gather's own output
     acc = CG.tree_sum_xyzt(entries)
     acc_plain = comb.tree_sum_packed(entries)
-    if not torch.equal(acc, acc_plain):
-        fail("tree_sum_xyzt (6 padd launches) disagrees with comb.tree_sum_packed")
-    tree_ms = cuda_ms(lambda: CG.tree_sum_xyzt(entries), 5)
-    print(f"tree_sum_xyzt: equal to the plain tree; {tree_ms:.3f} ms for 6 levels "
-          f"(plain {cuda_ms(lambda: comb.tree_sum_packed(entries), 2, 1):.3f} ms)")
+    tree_adds = flat_n * (m - 1)
+    record("tree_sum_xyzt", "dag_rider_tpu/ops/pallas_group.py:211", acc, acc_plain,
+           cuda_ms(lambda: CG.tree_sum_xyzt(entries), 20),
+           cuda_ms(lambda: comb.tree_sum_packed(entries), 2, 1),
+           4 * (entries.numel() + acc.numel()),
+           tree_adds * (8 * IMAD_PER_PRODUCT + 22 * d2_nnz), flat_n)
+    tree_ms = report[-1]["ms"]
 
     got = CG.finish_check(x.r_y, x.r_sign, acc)
     want = CG.finish_check_plain(x.r_y, x.r_sign, acc)
@@ -296,9 +334,9 @@ def main() -> int:
     launches = {**CG.LAUNCHES, **cuda_field.LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
     print(f"path launches: {launches}")
-    for name in ("padd_xx", "finish_check"):
-        if launches[name] == 0:
-            fail(f"the main path did not launch {name}")
+    if (launches["tree_sum_xyzt"], launches["finish_check"], launches["padd_xx"]) != (1, 1, 0):
+        fail(f"the dispatch launched {launches}; want one tree_sum_xyzt, one finish_check "
+             f"and no padd_xx")
     for row in report:
         row["launches"] = launches[row["name"]]
     if [len(mk) for mk in masks] != [N_KEYS] * ROUNDS:
@@ -351,7 +389,7 @@ def main() -> int:
           f"{gather_ms:.3f} ms, tree {tree_ms:.3f} ms, finish {finish_ms:.3f} ms; sum "
           f"{copy_ms + gather_ms + tree_ms + finish_ms:.3f} ms")
 
-    report.append(bls_phases(dev, imad_per_s))
+    report.extend(bls_phases(dev, imad_per_s))
 
     print(json.dumps({"kernels": report}))
     print(card)
@@ -361,15 +399,19 @@ def main() -> int:
     return 0
 
 
-def msm_launches(t: int) -> int:
-    """padd381_xx launches of one MSM over T points: 15 table steps, the
-    log2 T tree levels, 64 x 5 Horner steps."""
-    return 15 + t.bit_length() - 1 + 320
+def msm_launches(sizes) -> dict:
+    """Kernel launches of MSMs over ``sizes`` points: per MSM over T padded
+    points, 15 table steps and the log2 T tree levels through padd381_xx,
+    and the Horner chain with its canonical tail in one horner381."""
+    from dag_rider_tpu_torch.ops import bls_msm
+
+    ts = [bls_msm._pad(n) for n in sizes]
+    return {"padd381_xx": sum(15 + t.bit_length() - 1 for t in ts), "horner381": len(ts)}
 
 
-def bls_phases(dev, imad_per_s: float) -> dict:
-    """The BLS12-381 MSM path at n = 256 through ``padd381_xx``; returns
-    the kernel's report row. Fails on any mismatch."""
+def bls_phases(dev, imad_per_s: float) -> list:
+    """The BLS12-381 MSM path at n = 256 through ``padd381_xx`` and
+    ``horner381``; returns their report rows. Fails on any mismatch."""
     import dataclasses
     import hashlib
     import random
@@ -427,9 +469,10 @@ def bls_phases(dev, imad_per_s: float) -> dict:
 
     # -- kernel phase: padd381_xx against its plain version -------------------
     # Real curve points in projective form: the first tree level of each MSM
-    # (4,096 and 8,192 lanes at n = 256), a doubling on one lane (as in the
-    # Horner chain), and WIDE_LANES pairs drawn from the certificate's 4,096
-    # table entries (1/16 of them the identity, 1/16 of the pairs doublings).
+    # (4,096 and 8,192 lanes at n = 256), a doubling on one lane, 128 lanes
+    # (the coin's table steps), and WIDE_LANES pairs drawn from the
+    # certificate's 4,096 table entries (1/16 of them the identity, 1/16 of
+    # the pairs doublings).
     operands = {}
     for name in ("coin", "certificate"):
         lanes = msm_inputs[name]["lanes"]
@@ -442,6 +485,7 @@ def bls_phases(dev, imad_per_s: float) -> dict:
     idx_q = torch.from_numpy(prng.integers(0, flat.shape[1], WIDE_LANES)).to(dev)
     idx_q[::16] = idx_p[::16]
     operands[1] = (flat[:, 5:6], flat[:, 5:6])
+    operands[128] = (flat[:, idx_p[:128]], flat[:, idx_q[:128]])
     operands[WIDE_LANES] = (flat[:, idx_p], flat[:, idx_q])
     widths = {}
     for lanes_n in sorted(operands):
@@ -450,26 +494,62 @@ def bls_phases(dev, imad_per_s: float) -> dict:
         want = G.padd381_xx_plain(p, q)
         torch.cuda.synchronize()
         err = int((got.long() - want.long()).abs().max().item())
-        ms = cuda_ms(lambda: G.padd381_xx(p, q), 50 if lanes_n < WIDE_LANES else 20)
+        reps = 50 if lanes_n < WIDE_LANES else 20
+        ms = cuda_ms(lambda: G.padd381_xx(p, q), reps)
+        g_ms = graph_ms(lambda: G.padd381_xx(p, q), reps)
         plain_ms = cuda_ms(lambda: G.padd381_xx_plain(p, q), 3, 1)
         b_ms, b_by = bound(3 * G.ROWS * 4 * lanes_n, imads_per_lane * lanes_n, imad_per_s)
-        print(f"kernel padd381_xx: lanes {lanes_n}, equal {err == 0}, {ms:.4f} ms "
-              f"(plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by})")
+        print(f"kernel padd381_xx: lanes {lanes_n}, equal {err == 0}, {ms:.4f} ms, "
+              f"{g_ms:.4f} ms in a CUDA graph (plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
+              f"by {b_by})")
         if err != 0:
             fail(f"padd381_xx disagrees with its plain version at {lanes_n} lanes "
                  f"(max abs err {err})")
-        widths[lanes_n] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                           "bound_ms": b_ms, "bound_by": b_by}
+        widths[lanes_n] = {"max_abs_err": err, "ms": ms, "graph_ms": g_ms,
+                           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
     row = {"name": "padd381_xx", "route": "cuda", "source": G.SOURCE,
            "replaces": "dag_rider_tpu/ops/pallas_group381.py:150", "launches": None,
            **widths[cert_width], "library_ms": None, "lanes": cert_width,
            "widths": {str(k): v for k, v in widths.items()}}
 
+    # -- kernel phase: horner381 on the coin's and the certificate's window sums
+    # One chain is 320 dependent additions on one point, so beside its
+    # operation bound stands the chain's latency as 320 single-lane
+    # padd381_xx launches take it on the card: the 1-lane device time of
+    # one cooperative addition (CUDA graph, no host gaps) x 320.
+    hrows = {}
+    for name in ("coin", "certificate"):
+        m = msm_inputs[name]
+        w = G.tree_sum_xyz381(m["lanes"], m["t"])
+        m["w"] = w
+        raw, canon = G.horner381(w)
+        want_raw, want_canon = G.horner381_plain(w)
+        torch.cuda.synchronize()
+        err = max(int((a.long() - b.long()).abs().max().item())
+                  for a, b in ((raw, want_raw), (canon, want_canon)))
+        ms = cuda_ms(lambda: G.horner381(w), 20)
+        plain_ms = cuda_ms(lambda: G.horner381_plain(w), 1, 1)
+        b_ms, b_by = bound(4 * (G.ROWS * G.WINDOWS + G.ROWS + 3 * F.LIMBS),
+                           320 * imads_per_lane, imad_per_s)
+        chain_ms = 320 * widths[1]["graph_ms"]
+        print(f"kernel horner381 ({name} window sums): equal {err == 0}, {ms:.4f} ms "
+              f"(plain {plain_ms:.3f} ms, bound {b_ms:.6f} ms by {b_by}; 320 x the 1-lane "
+              f"padd381_xx device time {chain_ms:.3f} ms)")
+        if err != 0:
+            fail(f"horner381 disagrees with its plain version on the {name}'s window sums "
+                 f"(max abs err {err})")
+        hrows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                       "bound_by": b_by, "chain_ms": chain_ms}
+    hrow = {"name": "horner381", "route": "cuda", "source": G.SOURCE,
+            "replaces": "dag_rider_tpu/ops/bls_msm.py:196", "launches": None,
+            **hrows["certificate"], "library_ms": None, "lanes": 1,
+            "inputs": hrows}
+
     # -- coin path: n = 256, f + 1 = 86 shares, an honest and a Byzantine wave --
     def coin_wave(wave, want_sizes):
         """One wave through a card coin and a host coin; the card coin's
         MSMs must have the sizes ``want_sizes`` lists, in order, and the
-        wave must launch exactly the additions those MSMs hold."""
+        wave must make exactly the launches those MSMs hold."""
         sizes = []
 
         def card_msm(scalars, points):
@@ -487,7 +567,7 @@ def bls_phases(dev, imad_per_s: float) -> dict:
         ready = card.ready(wave)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = G.LAUNCHES["padd381_xx"]
+        launches = dict(G.LAUNCHES)
         t0 = time.perf_counter()
         host_ready = host.ready(wave)
         host_wall = time.perf_counter() - t0
@@ -499,18 +579,17 @@ def bls_phases(dev, imad_per_s: float) -> dict:
         if leader != host.choose_leader(wave) or card.filtered != host.filtered:
             fail(f"coin wave {wave}: leader {leader} / filtered {card.filtered} differ "
                  f"from the host coin's {host.choose_leader(wave)} / {host.filtered}")
-        want = sum(msm_launches(bls_msm._pad(n)) for n in want_sizes)
+        want = msm_launches(want_sizes)
         if sizes != want_sizes or launches != want:
-            fail(f"coin wave {wave}: MSMs of {sizes} points with {launches} padd381 "
-                 f"launches, want {want_sizes} with {want}")
+            fail(f"coin wave {wave}: MSMs of {sizes} points with launches {launches}, "
+                 f"want {want_sizes} with {want}")
         print(f"coin wave {wave} (n {BLS_N}, threshold {BLS_THRESHOLD}): sigma "
               f"{card._sigma[wave].hex()[:16]}... and leader {leader} equal to the host "
-              f"coin; filtered {card.filtered}; MSMs of {sizes} points, padd381 "
-              f"launches {launches}; ready() "
+              f"coin; filtered {card.filtered}; MSMs of {sizes} points, launches "
+              f"{launches}; ready() "
               f"{wall * 1e3:.1f} ms on the card path, {host_wall * 1e3:.1f} ms host")
         return card.filtered, launches
 
-    cert_t = msm_inputs["certificate"]["t"]
     # an honest wave: one Lagrange MSM over f + 1 shares
     filtered, coin_launches = coin_wave(1, [BLS_THRESHOLD])
     if filtered != 0:
@@ -531,13 +610,12 @@ def bls_phases(dev, imad_per_s: float) -> dict:
     cert = cv.make_certificate(7, entries)
     torch.cuda.synchronize()
     make_wall = time.perf_counter() - t0
-    cert_launches = G.LAUNCHES["padd381_xx"]
+    cert_launches = dict(G.LAUNCHES)
     host_cert = CertVerifier(reg, CERT_QUORUM, msm="host").make_certificate(7, entries)
     if cert is None or cert.agg_sig != host_cert.agg_sig:
         fail("certificate agg_sig differs from the host group law's")
-    if cert_launches != msm_launches(cert_t):
-        fail(f"certificate MSM launched padd381_xx {cert_launches} times, "
-             f"want {msm_launches(cert_t)}")
+    if cert_launches != msm_launches([CERT_QUORUM]):
+        fail(f"certificate MSM launches {cert_launches}, want {msm_launches([CERT_QUORUM])}")
     t0 = time.perf_counter()
     ok = cv.verify_certificate(cert)
     verify_s = time.perf_counter() - t0
@@ -546,16 +624,17 @@ def bls_phases(dev, imad_per_s: float) -> dict:
     if cv.verify_certificate(dataclasses.replace(cert, signers=cert.signers[:-1])):
         fail("a certificate below quorum verified")
     print(f"certificate (n {BLS_N}, quorum {CERT_QUORUM}): agg_sig {cert.agg_sig.hex()[:16]}... "
-          f"equal to the host group law; padd381 launches {cert_launches}; "
+          f"equal to the host group law; launches {cert_launches}; "
           f"make_certificate {make_wall * 1e3:.1f} ms; host pairing verify {verify_s:.2f} s")
-    row["launches"] = coin_launches + byz_launches + cert_launches
+    for r in (row, hrow):
+        r["launches"] = sum(d[r["name"]] for d in (coin_launches, byz_launches, cert_launches))
     print(f"bls path launches: coin {coin_launches}, Byzantine coin wave {byz_launches}, "
           f"certificate {cert_launches}")
 
     # -- MSM wall time and device split -----------------------------------------
     for name, m in msm_inputs.items():
-        scalars, pts, t, nib, lm, tables, lanes = (
-            m[k] for k in ("scalars", "points", "t", "nib", "lm", "tables", "lanes"))
+        scalars, pts, t, nib, lm, tables, lanes, w = (
+            m[k] for k in ("scalars", "points", "t", "nib", "lm", "tables", "lanes", "w"))
         walls = []
         for _ in range(MSM_REPEATS):
             t0 = time.perf_counter()
@@ -563,22 +642,21 @@ def bls_phases(dev, imad_per_s: float) -> dict:
             walls.append(time.perf_counter() - t0)
         if res != bls.g1_msm(scalars, pts):
             fail(f"{name} MSM differs from the host group law")
-        w = G.tree_sum_xyz381(lanes, t)
-        acc = bls_msm.horner_combine(w)
-        xyz = torch.stack([acc[:F.LIMBS, 0], acc[F.LIMBS:2 * F.LIMBS, 0], acc[2 * F.LIMBS:, 0]])
-        split = {
-            "tables": cuda_ms(lambda: bls_msm._point_tables(lm), 5),
-            "gather": cuda_ms(lambda: bls_msm.gather_windows(nib, tables), 5),
-            "tree": cuda_ms(lambda: G.tree_sum_xyz381(lanes, t), 5),
-            "horner": cuda_ms(lambda: bls_msm.horner_combine(w), 3, 1),
-            "canonical": cuda_ms(lambda: F.canonical(xyz), 3, 1),
+        parts = {
+            "tables": lambda: bls_msm._point_tables(lm),
+            "gather": lambda: bls_msm.gather_windows(nib, tables),
+            "tree": lambda: G.tree_sum_xyz381(lanes, t),
+            "horner381 incl. canonical": lambda: G.horner381(w),
         }
-        parts = ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+        split = {k: cuda_ms(fn, 5) for k, fn in parts.items()}
+        gsplit = {k: graph_ms(fn, 5) for k, fn in parts.items()}
         print(f"{name} MSM (T = {t}, {len(pts)} points): wall median "
               f"{statistics.median(walls) * 1e3:.2f} ms (runs "
-              f"{[round(x * 1e3, 2) for x in walls]} ms); device split (CUDA events): "
-              f"{parts}; sum {sum(split.values()):.3f} ms")
-    return row
+              f"{[round(x * 1e3, 2) for x in walls]} ms); device split (CUDA events, "
+              f"launched from the host / in a CUDA graph): "
+              + ", ".join(f"{k} {split[k]:.3f} / {gsplit[k]:.3f} ms" for k in parts)
+              + f"; sum {sum(split.values()):.3f} / {sum(gsplit.values()):.3f} ms")
+    return [row, hrow]
 
 
 if __name__ == "__main__":

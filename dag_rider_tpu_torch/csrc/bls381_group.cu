@@ -1,49 +1,81 @@
-// BLS12-381 G1 group kernel for Hopper (sm_90a): the port of
+// BLS12-381 G1 group kernels for Hopper (sm_90a): the port of
 // dag_rider_tpu/ops/pallas_group381.py (_padd381_kernel), the addition under
 // the G1 multi-scalar multiplication of threshold-coin and round-certificate
-// aggregation (ops/bls_msm.py).
+// aggregation (ops/bls_msm.py), and of the jnp Horner combination and
+// canonical form that follow it in dag_rider_tpu/ops/bls_msm.py
+// (horner_combine, then field381.canonical in unpack_point).
 //
 // Field elements are 33 signed 12-bit limbs in int32 (radix 2^12), exactly
 // as in ops/field381.py: the same carry counts (2 after add/sub, 3 after
 // mul_small and after the fold), masks, arithmetic shifts, and the same
-// order of steps in a multiply (schoolbook into 67 columns, two
-// column-normalize passes, the fold of columns 32..66 through FOLD, limb
-// 32 = 0, three carry steps). The limbs out of every function here equal
-// the torch and JAX twins' limbs bit for bit, and the reduced invariant
-// (|limb| < 2^12 + 2^7) keeps every column below 2^29.4 in that order, so
-// no operation overflows int32. Limbs are signed int: >> is arithmetic and
-// & two's complement, as in torch and jnp.
+// steps in a multiply (schoolbook into 67 columns, two column-normalize
+// passes, the fold of columns 32..66 through FOLD, limb 32 = 0, three carry
+// steps). Every carry step of field381 is a parallel step (shift and mask
+// each limb, add each carry to the next limb, fold the carry out of limb 32
+// back through FOLD row 1), so it maps onto the lanes of a warp. The
+// reduced invariant (|limb| < 2^12 + 2^7) bounds the sum of the absolute
+// values of a column's terms below 2^29.4, so a column summed in any order
+// is exact in int32: the limbs out of every function here equal the torch
+// and JAX twins' limbs bit for bit. Limbs are signed int: >> is arithmetic
+// and & two's complement, as in torch and jnp.
 //
-// Layout: limb-major [99, N] int32 (row = coordinate * 33 + limb, X Y Z),
-// one thread per lane. The 32 threads of a warp read 32 neighbouring int32
-// of each row. Operands may be column slices of a wider tensor: each has
+// Layout in device memory: limb-major [99, N] int32 (row = coordinate * 33
+// + limb, X Y Z). Operands may be column slices of a wider tensor: each has
 // its own row stride.
 //
-// What bounds this kernel: integer multiply-adds. One complete RCB15
-// addition (a = 0, b3 = 12) is 12 general 33x33 products (1,089 IMADs of
-// schoolbook and 1,117 of fold each, plus ~700 carry operations) and 2
-// small multiplies, a dependent chain held per thread. A product alone
-// holds 67 columns and 66 operand limbs, and the addition keeps p, q and
-// up to eight temporaries (~550 limbs), far beyond 255 registers. So this
-// first design keeps the points and temporaries in per-thread local
-// memory (L1/L2-cached), and the product is one non-inlined device
-// function whose operands and columns live in registers while it runs:
-// it compiles once, which keeps nvcc fast, and every call reads 66 limbs
-// and writes 33. FOLD sits in __constant__ memory: every lane reads the
-// same entry at once, which the constant cache broadcasts. Shared-memory
-// staging and a faster layout are later work.
+// What bounds these kernels. One complete RCB15 addition (a = 0, b3 = 12)
+// is 12 general 33x33 products (1,089 schoolbook and 1,117 fold IMADs each,
+// plus ~700 carry operations) and 2 small multiplies. On the MSM's path
+// most additions form dependent chains: 15 table steps over T = 128-256
+// lanes, log2 T tree levels, and the 320-step Horner chain on one point.
+// So the time is set by the latency of one addition, not by the card's
+// IMAD rate. The first design gave each lane one thread: a 33-limb product
+// does not fit in registers, the operands went through a 2,520-byte
+// local-memory stack with spills, and one addition was ~80 us of one
+// thread's latency; the Horner chain was 320 launches of it.
+//
+// This design spreads one addition over a block of six warps (192
+// threads), with the operands and temporaries staged in shared memory (one
+// point is 396 B):
+// - a field element lives across a warp: lane l holds limb l, and limb 32
+//   is held by every lane; add, sub, mul_small and every carry step are
+//   one instruction per lane plus two shuffles;
+// - RCB15's two product stages each have six independent products
+//   (t0, t1, t2, t3, t4, x3; then the products of X3, Y3 and Z3): warp w
+//   computes product w of each stage, building its own operands from the
+//   previous stage's results;
+// - inside a product, lane l sums columns l and l + 32 (33 terms between
+//   them), reading the multiplier as broadcast 16-byte loads and the
+//   multiplicand from a doubled copy in shared memory at consecutive
+//   addresses (no bank conflicts); the two normalize passes move carries
+//   by shuffles; the fold is one 35-term dot product per output limb;
+// - FOLD is copied into shared memory per block: lanes read different
+//   entries of it at once, which the constant cache would serialize.
+// The critical path of one addition is then about two products deep
+// instead of twelve. padd381_kernel stages up to 8 neighbouring lanes'
+// operands per block (one 32-byte sector per row) and adds them in turn.
+// horner381_kernel runs the whole Horner chain (64 windows x 4 doublings +
+// 1 addition) in one launch with the 64 window sums in shared memory, then
+// field381.canonical of X, Y and Z (one thread per coordinate), and writes
+// both the raw accumulator and its canonical limbs. This does the earlier
+// design's later work: shared-memory staging, and one launch for the chain.
 
 #include <cuda_runtime.h>
 
 #define NL 33
-#define NCOLS 67
 #define LIMB_BITS 12
 #define LIMB_MASK 0xFFF
+#define WARPS 6
+#define THREADS (WARPS * 32)
+#define FULL_MASK 0xFFFFFFFFu
+#define PT 36       // ints per staged coordinate: 33 limbs, padded to 16 bytes
+#define CHUNK_MAX 8  // lanes one padd381_kernel block stages at once
+#define WINDOWS 64
 
 // FOLD[j] = the 32 strict limbs of 2^(12 (j + 32)) mod p (ops/field381.py;
 // tests/test_torch_bls.py checks this table against it). Row 1 (2^396 mod
 // p) is also the top-limb fold of the parallel carry step.
-__constant__ int kFold[35][32] = {
+__device__ const int kFold[35][32] = {
     {4093, 47, 0, 0, 1545, 39, 3072, 3136, 11, 3904, 2795, 1419, 967, 1397, 2200, 1524,
      1861, 1317, 880, 1413, 1998, 1751, 1772, 2597, 2711, 113, 860, 3657, 2688, 3135, 1630, 351},  // 2^(12*32)
     {2943, 2060, 52, 0, 3971, 294, 1067, 3040, 3562, 4044, 1233, 3659, 3197, 1395, 1920, 1037,
@@ -115,175 +147,319 @@ __constant__ int kFold[35][32] = {
     {3287, 2462, 259, 837, 3991, 2112, 2109, 172, 1638, 1156, 2974, 1767, 205, 3529, 2773, 2594,
      2392, 392, 3187, 663, 2969, 236, 262, 784, 1507, 3719, 752, 2315, 2441, 475, 2349, 236},  // 2^(12*66)
 };
-
-struct fe {
-  int v[NL];
+// field381._BIG_P (p * 2^15 as 32 strict limbs and a wide top limb) and k p
+// for k = 8, 4, 2, 1 in strict limbs: the constants of field381.canonical
+// (tests/test_torch_kernels3.py checks them against it).
+__constant__ int kBigP[NL] = {
+    0, 1368, 4053, 4095, 4095, 4087, 4060, 4095, 2217, 4085, 1535, 245, 2834, 1415, 123, 1685,
+    920, 1531, 649, 1948, 1474, 954, 2994, 3430, 421, 3506, 3539, 600, 845, 3071, 1308, 2191,
+    3328};
+__constant__ int kKP[4][NL] = {
+    {1368, 4053, 4095, 4095, 4087, 4060, 4095, 2217, 4085, 1535, 245, 2834, 1415, 123, 1685, 920,
+     1531, 649, 1948, 1474, 954, 2994, 3430, 421, 3506, 3539, 600, 845, 3071, 1308, 2191, 3328, 0},
+    {2732, 4074, 4095, 4095, 2043, 4078, 4095, 3156, 4090, 2815, 122, 3465, 2755, 2109, 842, 2508,
+     2813, 324, 974, 737, 477, 1497, 3763, 210, 3801, 1769, 2348, 2470, 1535, 2702, 1095, 1664, 0},
+    {1366, 4085, 4095, 4095, 1021, 4087, 2047, 1578, 4093, 1407, 2109, 3780, 3425, 1054, 421, 3302,
+     1406, 162, 2535, 2416, 2286, 2796, 1881, 2153, 3948, 884, 1174, 3283, 767, 3399, 547, 832, 0},
+    {2731, 4090, 4095, 4095, 2558, 4091, 1023, 2837, 4094, 2751, 1054, 3938, 1712, 2575, 210, 1651,
+     703, 2129, 1267, 1208, 1143, 3446, 2988, 1076, 1974, 442, 2635, 3689, 2431, 3747, 273, 416, 0},
 };
 
+// Shared memory of one block: FOLD, the two product stages' results, and
+// each warp's product scratch.
+struct Coop {
+  int fold[35][32];
+  __align__(16) int t[WARPS][PT];   // t0 t1 t2 t3 t4 x3
+  __align__(16) int u[WARPS][PT];   // the six products of X3, Y3, Z3
+  __align__(16) int a[WARPS][32];   // multiplier limbs 0..31 (broadcast reads)
+  __align__(16) int bb[WARPS][64];  // multiplicand limbs 0..31, twice
+  __align__(16) int ch[WARPS][32];  // product columns 32..63 (broadcast reads)
+};
+
+__device__ __forceinline__ void load_fold(Coop& s) {
+  for (int i = threadIdx.x; i < 35 * 32; i += blockDim.x) (&s.fold[0][0])[i] = (&kFold[0][0])[i];
+}
+
 // ---------------------------------------------------------------------------
-// Ring ops (field381.carry / add / sub / mul_small)
+// A field element across a warp: lane l holds limb l (l < 32), every lane
+// holds limb 32. All 32 lanes of the warp call these functions together.
 // ---------------------------------------------------------------------------
 
-// One parallel carry step per iteration; the carry out of limb 32 (weight
-// 2^396) folds back through row 1 of FOLD (field381._carry_step).
+struct wfe {
+  int lo;   // limb (lane)
+  int top;  // limb 32
+};
+
+__device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
+
+__device__ __forceinline__ wfe wload(const int* s) { return {s[lane_id()], s[NL - 1]}; }
+
+__device__ __forceinline__ void wstore(int* s, wfe x) {
+  s[lane_id()] = x.lo;
+  if (lane_id() == 0) s[NL - 1] = x.top;
+}
+
+// field381.carry: parallel carry steps; the carry out of limb 32 (weight
+// 2^396) folds back through FOLD row 1 (f1 = this lane's entry of it).
 template <int STEPS>
-__device__ __forceinline__ void carry33(int (&x)[NL]) {
+__device__ __forceinline__ wfe wcarry(wfe x, int f1) {
+  const int lane = lane_id();
 #pragma unroll
   for (int s = 0; s < STEPS; s++) {
-    int c[NL];
+    const int c = x.lo >> LIMB_BITS, c32 = x.top >> LIMB_BITS;
+    const int up = __shfl_up_sync(FULL_MASK, c, 1);
+    const int c31 = __shfl_sync(FULL_MASK, c, 31);
+    x.lo = (x.lo & LIMB_MASK) + (lane == 0 ? 0 : up) + c32 * f1;
+    x.top = (x.top & LIMB_MASK) + c31;
+  }
+  return x;
+}
+
+__device__ __forceinline__ wfe wadd(wfe a, wfe b, int f1) {
+  return wcarry<2>({a.lo + b.lo, a.top + b.top}, f1);
+}
+
+__device__ __forceinline__ wfe wsub(wfe a, wfe b, int f1) {
+  return wcarry<2>({a.lo - b.lo, a.top - b.top}, f1);
+}
+
+__device__ __forceinline__ wfe wmul_small(wfe a, int k, int f1) {
+  return wcarry<3>({a.lo * k, a.top * k}, f1);
+}
+
+// field381.mul: a * b with the warp's scratch (sa, sbb, sch) in shared
+// memory. Column k of the schoolbook product is sum_{i+j=k} a_i b_j over
+// k = 0..64 (columns 65, 66 start at 0); lane l sums columns l and l + 32
+// and every lane column 64; then two normalize passes, the fold and three
+// carry steps, all as in field381.mul.
+__device__ __forceinline__ wfe wmul(wfe a, wfe b, int* sa, int* sbb, int* sch,
+                                    const int (*fold)[32], int f1) {
+  const int lane = lane_id();
+  __syncwarp();  // the warp's previous product has finished reading the scratch
+  sa[lane] = a.lo;
+  sbb[lane] = b.lo;
+  sbb[lane + 32] = b.lo;
+  __syncwarp();
+  int lo = 0;                               // column l
+  int hi = a.lo * b.top + a.top * b.lo;     // column l + 32: (i, j) = (l, 32), (32, l)
+  const int4* a4 = reinterpret_cast<const int4*>(sa);
+#pragma unroll
+  for (int g = 0; g < 8; g++) {
+    const int4 v = a4[g];
+    const int av[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int k = 0; k < 4; k++) {
+      const int i = 4 * g + k;
+      // b_((l - i) mod 32): b_(l - i) for column l when i <= l, else
+      // b_(l + 32 - i) for column l + 32
+      const int p = av[k] * sbb[lane - i + 32];
+      if (i <= lane) lo += p; else hi += p;
+    }
+  }
+  int c64 = a.top * b.top, c65 = 0, c66 = 0;
+#pragma unroll
+  for (int s = 0; s < 2; s++) {  // c = (c & MASK) + shift_up(c >> 12)
+    const int rl = lo >> LIMB_BITS, rh = hi >> LIMB_BITS;
+    const int r64 = c64 >> LIMB_BITS, r65 = c65 >> LIMB_BITS;
+    const int upl = __shfl_up_sync(FULL_MASK, rl, 1);
+    const int uph = __shfl_up_sync(FULL_MASK, rh, 1);
+    const int rl31 = __shfl_sync(FULL_MASK, rl, 31);
+    const int rh31 = __shfl_sync(FULL_MASK, rh, 31);
+    lo = (lo & LIMB_MASK) + (lane == 0 ? 0 : upl);
+    hi = (hi & LIMB_MASK) + (lane == 0 ? rl31 : uph);
+    c66 = (c66 & LIMB_MASK) + r65;
+    c65 = (c65 & LIMB_MASK) + r64;
+    c64 = (c64 & LIMB_MASK) + rh31;
+  }
+  // fold: limb l = column l + sum_j column (32 + j) * FOLD[j][l]; limb 32 = 0
+  sch[lane] = hi;
+  __syncwarp();
+  int acc = lo + c64 * fold[32][lane] + c65 * fold[33][lane] + c66 * fold[34][lane];
+  const int4* h4 = reinterpret_cast<const int4*>(sch);
+#pragma unroll
+  for (int g = 0; g < 8; g++) {
+    const int4 h = h4[g];
+    acc += h.x * fold[4 * g][lane] + h.y * fold[4 * g + 1][lane] +
+           h.z * fold[4 * g + 2][lane] + h.w * fold[4 * g + 3][lane];
+  }
+  return wcarry<3>({acc, 0}, f1);
+}
+
+// ---------------------------------------------------------------------------
+// Complete addition, RCB15 Algorithm 7 (a = 0, b3 = 12): cuda_group381.padd
+// step for step, by the block's six warps. p, q, r are points staged in
+// shared memory as [3][PT] (X, Y, Z); r may alias p or q. All THREADS
+// threads call it; it ends with the block synchronized.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void coop_padd(const int* p, const int* q, int* r, Coop& s) {
+  const int w = threadIdx.x >> 5, lane = lane_id();
+  const int f1 = s.fold[1][lane];
+  int* sa = s.a[w];
+  int* sbb = s.bb[w];
+  int* sch = s.ch[w];
+  {
+    // stage 1, warp w: t0 = X1 X2, t1 = Y1 Y2, t2 = Z1 Z2,
+    // t3 = (X1 + Y1)(X2 + Y2), t4 = (Y1 + Z1)(Y2 + Z2), x3 = (X1 + Z1)(X2 + Z2)
+    const int c0 = w < 3 ? w : (w == 4 ? 1 : 0);
+    const int c1 = w == 3 ? 1 : 2;
+    wfe x = wload(p + PT * c0), y = wload(q + PT * c0);
+    if (w >= 3) {
+      x = wadd(x, wload(p + PT * c1), f1);
+      y = wadd(y, wload(q + PT * c1), f1);
+    }
+    wstore(s.t[w], wmul(x, y, sa, sbb, sch, s.fold, f1));
+  }
+  __syncthreads();
+  {
+    // stage 2, warp w: u0 = t3' t1', u1 = t4' y3', u2 = y3' x3', u3 = t1' z3,
+    // u4 = z3 t4', u5 = x3' t3' with t3' = t3 - (t0 + t1), t4' = t4 - (t1 + t2),
+    // y3' = 12 (x3 - (t0 + t2)), x3' = 3 t0, z3 = t1 + 12 t2, t1' = t1 - 12 t2
+    const wfe t0 = wload(s.t[0]), t1 = wload(s.t[1]), t2 = wload(s.t[2]);
+    wfe x, y;
+    if (w == 0 || w == 3 || w == 4) {
+      const wfe b3t2 = wmul_small(t2, 12, f1);
+      if (w == 0) {
+        x = wsub(wload(s.t[3]), wadd(t0, t1, f1), f1);
+        y = wsub(t1, b3t2, f1);
+      } else if (w == 3) {
+        x = wsub(t1, b3t2, f1);
+        y = wadd(t1, b3t2, f1);
+      } else {
+        x = wadd(t1, b3t2, f1);
+        y = wsub(wload(s.t[4]), wadd(t1, t2, f1), f1);
+      }
+    } else if (w == 5) {
+      x = wadd(wadd(t0, t0, f1), t0, f1);
+      y = wsub(wload(s.t[3]), wadd(t0, t1, f1), f1);
+    } else {
+      const wfe y3 = wmul_small(wsub(wload(s.t[5]), wadd(t0, t2, f1), f1), 12, f1);
+      if (w == 1) {
+        x = wsub(wload(s.t[4]), wadd(t1, t2, f1), f1);
+        y = y3;
+      } else {
+        x = y3;
+        y = wadd(wadd(t0, t0, f1), t0, f1);
+      }
+    }
+    wstore(s.u[w], wmul(x, y, sa, sbb, sch, s.fold, f1));
+  }
+  __syncthreads();
+  if (w < 3) {  // X3 = u0 - u1, Y3 = u2 + u3, Z3 = u4 + u5
+    const wfe a = wload(s.u[2 * w]), b = wload(s.u[2 * w + 1]);
+    wstore(r + PT * w, w == 0 ? wsub(a, b, f1) : wadd(a, b, f1));
+  }
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// field381.canonical, one thread per coordinate: the BIG_P offset, three
+// sequential passes, four folds of the top limb, and the conditional
+// subtractions of 8p, 4p, 2p and p.
+// ---------------------------------------------------------------------------
+
+// field381._seq_pass: exact sequential carry; the carry out of limb 32
+// folds back through FOLD row 1 into limbs 0..31.
+__device__ __forceinline__ void seq_pass(int (&x)[NL], const int* f1) {
+  int carry = 0;
+#pragma unroll
+  for (int i = 0; i < NL; i++) {
+    const int v = x[i] + carry;
+    x[i] = v & LIMB_MASK;
+    carry = v >> LIMB_BITS;
+  }
+#pragma unroll
+  for (int i = 0; i < NL - 1; i++) x[i] += carry * f1[i];
+}
+
+__device__ __forceinline__ void canonical33(const int* in, int* out, const int (*fold)[32]) {
+  int x[NL];
+#pragma unroll
+  for (int i = 0; i < NL; i++) x[i] = in[i] + kBigP[i];
+#pragma unroll 1
+  for (int s = 0; s < 3; s++) seq_pass(x, fold[1]);
+#pragma unroll 1
+  for (int s = 0; s < 4; s++) {
+    const int top = x[NL - 1];
+#pragma unroll
+    for (int i = 0; i < NL - 1; i++) x[i] += top * fold[0][i];
+    x[NL - 1] = 0;
+    seq_pass(x, fold[1]);
+  }
+#pragma unroll
+  for (int k = 0; k < 4; k++) {  // field381._cond_sub with 8p, 4p, 2p, p
+    int d[NL];
+    int carry = 0;
 #pragma unroll
     for (int i = 0; i < NL; i++) {
-      c[i] = x[i] >> LIMB_BITS;
-      x[i] &= LIMB_MASK;
+      const int v = x[i] - kKP[k][i] + carry;
+      d[i] = v & LIMB_MASK;
+      carry = v >> LIMB_BITS;
     }
+    if (carry >= 0) {
 #pragma unroll
-    for (int j = 0; j < NL - 1; j++) x[j + 1] += c[j];
-#pragma unroll
-    for (int i = 0; i < NL - 1; i++) x[i] += c[NL - 1] * kFold[1][i];
-  }
-}
-
-__device__ __forceinline__ void add33(const fe& a, const fe& b, fe& out) {
-  int r[NL];
-#pragma unroll
-  for (int i = 0; i < NL; i++) r[i] = a.v[i] + b.v[i];
-  carry33<2>(r);
-#pragma unroll
-  for (int i = 0; i < NL; i++) out.v[i] = r[i];
-}
-
-__device__ __forceinline__ void sub33(const fe& a, const fe& b, fe& out) {
-  int r[NL];
-#pragma unroll
-  for (int i = 0; i < NL; i++) r[i] = a.v[i] - b.v[i];
-  carry33<2>(r);
-#pragma unroll
-  for (int i = 0; i < NL; i++) out.v[i] = r[i];
-}
-
-__device__ __forceinline__ void mul_small33(fe& a, int k) {
-  int r[NL];
-#pragma unroll
-  for (int i = 0; i < NL; i++) r[i] = a.v[i] * k;
-  carry33<3>(r);
-#pragma unroll
-  for (int i = 0; i < NL; i++) a.v[i] = r[i];
-}
-
-// ---------------------------------------------------------------------------
-// Multiply (field381.mul): 33x33 schoolbook into 67 columns, two
-// column-normalize passes, fold of columns 32..66 through FOLD, limb 32 = 0,
-// three carry steps. Not inlined: one copy of the ~3,000-instruction body.
-// ---------------------------------------------------------------------------
-
-__device__ __noinline__ void mul33(const fe& a, const fe& b, fe& out) {
-  int x[NL], y[NL];
-#pragma unroll
-  for (int i = 0; i < NL; i++) {
-    x[i] = a.v[i];
-    y[i] = b.v[i];
-  }
-  int c[NCOLS];
-#pragma unroll
-  for (int k = 0; k < NCOLS; k++) c[k] = 0;
-#pragma unroll
-  for (int i = 0; i < NL; i++) {
-#pragma unroll
-    for (int j = 0; j < NL; j++) c[i + j] += x[i] * y[j];
-  }
-#pragma unroll
-  for (int s = 0; s < 2; s++) {
-    int cr[NCOLS];
-#pragma unroll
-    for (int k = 0; k < NCOLS; k++) {
-      cr[k] = c[k] >> LIMB_BITS;
-      c[k] &= LIMB_MASK;
+      for (int i = 0; i < NL; i++) x[i] = d[i];
     }
-#pragma unroll
-    for (int k = 0; k < NCOLS - 1; k++) c[k + 1] += cr[k];
   }
-  int lo[NL];
 #pragma unroll
-  for (int i = 0; i < NL - 1; i++) lo[i] = c[i];
-  lo[NL - 1] = 0;
-#pragma unroll
-  for (int j = 0; j < NCOLS - 32; j++) {
-#pragma unroll
-    for (int i = 0; i < 32; i++) lo[i] += c[32 + j] * kFold[j][i];
-  }
-  carry33<3>(lo);
-#pragma unroll
-  for (int i = 0; i < NL; i++) out.v[i] = lo[i];
+  for (int i = 0; i < NL; i++) out[i] = x[i];
 }
 
 // ---------------------------------------------------------------------------
-// Complete addition, RCB15 Algorithm 7 (a = 0, b3 = 12): bls_msm.padd and
-// pallas_group381._padd381_core, step for step.
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void padd381(const fe (&p)[3], const fe (&q)[3], fe (&r)[3]) {
-  fe t0, t1, t2, t3, t4, x3, y3, z3, u, v;
-  mul33(p[0], q[0], t0);
-  mul33(p[1], q[1], t1);
-  mul33(p[2], q[2], t2);
-  add33(p[0], p[1], u);
-  add33(q[0], q[1], v);
-  mul33(u, v, t3);
-  add33(t0, t1, u);
-  sub33(t3, u, t3);
-  add33(p[1], p[2], u);
-  add33(q[1], q[2], v);
-  mul33(u, v, t4);
-  add33(t1, t2, u);
-  sub33(t4, u, t4);
-  add33(p[0], p[2], u);
-  add33(q[0], q[2], v);
-  mul33(u, v, x3);
-  add33(t0, t2, u);
-  sub33(x3, u, y3);
-  add33(t0, t0, u);
-  add33(u, t0, x3);  // 3 X1 X2
-  mul_small33(t2, 12);  // b3 Z1 Z2
-  add33(t1, t2, z3);
-  sub33(t1, t2, t1);
-  mul_small33(y3, 12);  // b3 (X1 Z2 + X2 Z1)
-  mul33(t3, t1, u);
-  mul33(t4, y3, v);
-  sub33(u, v, r[0]);
-  mul33(y3, x3, u);
-  mul33(t1, z3, v);
-  add33(u, v, r[1]);
-  mul33(z3, t4, u);
-  mul33(x3, t3, v);
-  add33(u, v, r[2]);
-}
-
-// ---------------------------------------------------------------------------
-// Kernel
+// Kernels
 // ---------------------------------------------------------------------------
 
 // Replaces pallas_group381._padd381_kernel: p + q for packed XYZ [99, n]
-// operands with row strides ldp, ldq; out [99, n] with row stride ldo.
-__global__ void __launch_bounds__(128)
+// operands with row strides ldp, ldq; out [99, n] with row stride ldo. Block
+// b adds lanes [b * chunk, b * chunk + chunk) one after another.
+__global__ void __launch_bounds__(THREADS)
 padd381_kernel(const int* __restrict__ p, long long ldp, const int* __restrict__ q,
-               long long ldq, int* __restrict__ out, long long ldo, long long n) {
-  long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  fe P[3], Q[3], R[3];
-#pragma unroll
-  for (int c = 0; c < 3; c++) {
-#pragma unroll
-    for (int i = 0; i < NL; i++) {
-      P[c].v[i] = p[(c * NL + i) * ldp + lane];
-      Q[c].v[i] = q[(c * NL + i) * ldq + lane];
-    }
+               long long ldq, int* __restrict__ out, long long ldo, long long n, int chunk) {
+  __shared__ Coop s;
+  __shared__ __align__(16) int pts[2][CHUNK_MAX][3][PT];  // P and Q; the sum overwrites P
+  const long long base = (long long)blockIdx.x * chunk;
+  const int m = (int)(n - base < chunk ? n - base : chunk);
+  load_fold(s);
+  for (int i = threadIdx.x; i < 2 * 3 * NL * m; i += THREADS) {
+    const int which = i / (3 * NL * m), row = i % (3 * NL * m) / m, k = i % m;
+    const int* src = which ? q + row * ldq : p + row * ldp;
+    pts[which][k][row / NL][row % NL] = src[base + k];
   }
-  padd381(P, Q, R);
-#pragma unroll
-  for (int c = 0; c < 3; c++) {
-#pragma unroll
-    for (int i = 0; i < NL; i++) out[(c * NL + i) * ldo + lane] = R[c].v[i];
+  __syncthreads();
+  for (int k = 0; k < m; k++) coop_padd(&pts[0][k][0][0], &pts[1][k][0][0], &pts[0][k][0][0], s);
+  for (int i = threadIdx.x; i < 3 * NL * m; i += THREADS) {
+    const int row = i / m, k = i % m;
+    out[row * ldo + base + k] = pts[0][k][row / NL][row % NL];
   }
+}
+
+// The Horner combination of bls_msm.horner_combine and the canonical form
+// of bls_msm.unpack_point: acc = identity; for i = 0..63: acc = 2^4 acc
+// (four padd(acc, acc)), acc = acc + S_(63 - i); then canonical(X, Y, Z).
+// w: window sums [99, 64] with row stride ldw; raw: [99] (the accumulator,
+// limb-major); canon: [3, 33].
+__global__ void __launch_bounds__(THREADS)
+horner381_kernel(const int* __restrict__ w, long long ldw, int* __restrict__ raw,
+                 int* __restrict__ canon) {
+  __shared__ Coop s;
+  __shared__ __align__(16) int win[WINDOWS][3][PT];
+  __shared__ __align__(16) int acc[3][PT];
+  load_fold(s);
+  for (int i = threadIdx.x; i < 3 * NL * WINDOWS; i += THREADS) {
+    const int row = i / WINDOWS, j = i % WINDOWS;
+    win[j][row / NL][row % NL] = w[row * ldw + j];
+  }
+  for (int i = threadIdx.x; i < 3 * PT; i += THREADS) (&acc[0][0])[i] = (i == PT);  // (0 : 1 : 0)
+  __syncthreads();
+  int* a = &acc[0][0];
+#pragma unroll 1
+  for (int i = 0; i < WINDOWS; i++) {
+#pragma unroll 1
+    for (int d = 0; d < 4; d++) coop_padd(a, a, a, s);
+    coop_padd(a, &win[WINDOWS - 1 - i][0][0], a, s);
+  }
+  for (int i = threadIdx.x; i < 3 * NL; i += THREADS) raw[i] = acc[i / NL][i % NL];
+  if (threadIdx.x < 3) canonical33(acc[threadIdx.x], canon + NL * threadIdx.x, s.fold);
 }
 
 // ---------------------------------------------------------------------------
@@ -293,8 +469,26 @@ padd381_kernel(const int* __restrict__ p, long long ldp, const int* __restrict__
 
 extern "C" int dr_padd381_xx(const int* p, long long ldp, const int* q, long long ldq,
                              int* out, long long ldo, long long n, void* stream) {
-  if (n > 0)
-    padd381_kernel<<<(unsigned)((n + 127) / 128), 128, 0, (cudaStream_t)stream>>>(
-        p, ldp, q, ldq, out, ldo, n);
+  if (n > 0) {
+    // Lanes per block: 1 while the card has a block slot for every lane
+    // (the MSM's table steps and deep tree levels), up to CHUNK_MAX once
+    // the lanes outnumber ~4 resident blocks per SM many times over.
+    static int sms = 0;
+    if (sms == 0) {
+      int dev = 0;
+      cudaGetDevice(&dev);
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    int chunk = 1;
+    while (chunk < CHUNK_MAX && n >= 2LL * chunk * 4 * sms) chunk *= 2;
+    const long long blocks = (n + chunk - 1) / chunk;
+    padd381_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        p, ldp, q, ldq, out, ldo, n, chunk);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int dr_horner381(const int* w, long long ldw, int* raw, int* canon, void* stream) {
+  horner381_kernel<<<1, THREADS, 0, (cudaStream_t)stream>>>(w, ldw, raw, canon);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,8 @@
 // Ed25519 group kernels for Hopper (sm_90a): the port of
 // dag_rider_tpu/ops/pallas_group.py (_padd_xx_kernel, _finish_kernel,
 // _pow22523_kernel) and dag_rider_tpu/ops/pallas_field.py (_mul_kernel).
+// tree_sum_xyzt_kernel replaces the six _padd_xx_kernel launches of the
+// comb tree (pallas_group.tree_sum_xyzt) with one.
 //
 // Field elements are 22 signed 12-bit limbs in int32 (radix 2^12), exactly
 // as in ops/field.py: the same carry counts (2 after add/sub, 2 column
@@ -10,20 +12,36 @@
 // and the reduced invariant (|limb0| < 2^14, |limb_i| < 2^13) keeps every
 // product column below 2^31, so no operation overflows int32.
 //
-// Layout: limb-major [rows, N] int32, one thread per lane (batch element).
-// The 32 threads of a warp read 32 neighbouring int32 of each row.
+// Layout: limb-major [rows, N] int32, one thread per lane (batch element),
+// for the per-lane kernels. The 32 threads of a warp read 32 neighbouring
+// int32 of each row.
 //
 // What bounds these kernels: integer multiply-adds. One 22x22 product is
 // 484 IMADs plus ~600 carry/fold operations, a point addition is 9
 // products, the finish tail ~290, all dependent chains held per thread.
-// The design keeps every limb in registers (arrays indexed only by
-// compile-time constants under full unrolling) so device memory sees one
-// read of each operand and one write of the result; the long squaring runs
-// of the square-root chain are rolled loops (#pragma unroll 1) to keep
-// code size sane. An addition keeps p, the cached q and 46 product columns
-// live near the 255-register ceiling (ptxas -v reports registers and any
-// spill per kernel); shared memory and warp-cooperative multiplies are
-// later work.
+// The per-lane design keeps every limb in registers (arrays indexed only
+// by compile-time constants under full unrolling) so device memory sees
+// one read of each operand and one write of the result; the long squaring
+// runs of the square-root chain are rolled loops (#pragma unroll 1) to
+// keep code size sane. An addition keeps p, the cached q and 46 product
+// columns live near the 255-register ceiling (ptxas -v reports registers
+// and any spill per kernel).
+//
+// The comb tree sums the 64 gathered entries of every (signature, side)
+// group: 63 additions in 6 levels. Run as 6 per-lane launches, every level
+// went out to device memory and back, and a limb-major copy of the whole
+// gather output came before the first. tree_sum_xyzt_kernel reads the
+// gather's own [groups, 64, 88] output once into shared memory (22.5 KB a
+// group, two groups a block) and runs all six levels there, writing one
+// point per group. Each addition belongs to a quad of four threads: thread
+// r computes row r of the row-stacked products of comb.padd_cached (the
+// cached form of q, then (A, B, C, D), then (EF, GH, FG, EH)), with the
+// rows exchanged by shuffles inside the quad. So a thread holds two
+// operand rows and 46 columns instead of a whole addition, the critical
+// path is three products instead of nine, and the deep levels (16, 8, ...,
+// 1 additions a group) keep more threads busy than one thread per addition
+// would. This does the earlier design's later work: shared memory and
+// threads that cooperate on one addition.
 
 #include <cuda_runtime.h>
 
@@ -304,6 +322,91 @@ padd_xx_kernel(const int* __restrict__ p, long long ldp, const int* __restrict__
   for (int c = 0; c < 4; c++) store_fe(out, ldo, c * NL, lane, R[c]);
 }
 
+// ---------------------------------------------------------------------------
+// The comb tree in one launch
+// ---------------------------------------------------------------------------
+
+#define PACKED (4 * NL)   // ints per packed XYZT point
+#define TREE_THREADS 128  // 32 quads of four threads, one addition per quad
+#define TREE_GROUPS 2     // (signature, side) groups per block
+#define TREE_MAX_M 64     // entries per group
+
+__device__ __forceinline__ fe load_row(const int* s) {
+  fe x;
+#pragma unroll
+  for (int i = 0; i < NL; i++) x.v[i] = s[i];
+  return x;
+}
+
+// p + q by the four threads of a quad, in place (the sum overwrites p);
+// p and q are packed XYZT points in shared memory. Thread r = 0..3 computes
+// row r of the row-stacked products of comb.padd_cached(p, to_cached(q)):
+// (Y1 - X1, Y1 + X1, T1, Z1) x (Y2 - X2, Y2 + X2, 2d T2, 2 Z2) = (A, B, C, D),
+// then with E = B - A, F = D - C, G = D + C, H = B + A row r of
+// (E F, G H, F G, E H). The quad's lanes are lane0 .. lane0 + 3 of the warp.
+__device__ __forceinline__ void quad_padd(int* p, const int* q, int r, unsigned mask,
+                                          int lane0) {
+  fe lhs, qc;
+  if (r == 2) {
+    const int d2[NL] = D2_LIMBS;
+    lhs = load_row(p + 3 * NL);
+    qc = mul22_const(load_row(q + 3 * NL), d2);
+  } else if (r == 3) {
+    lhs = load_row(p + 2 * NL);
+    qc = dbl22(load_row(q + 2 * NL));
+  } else {
+    const fe px = load_row(p), py = load_row(p + NL);
+    const fe qx = load_row(q), qy = load_row(q + NL);
+    lhs = r == 0 ? sub22(py, px) : add22(py, px);
+    qc = r == 0 ? sub22(qy, qx) : add22(qy, qx);
+  }
+  const fe m = mul22(lhs, qc);
+  __syncwarp(mask);  // the quad has read p and q before any row of p is overwritten
+  fe u, v;
+#pragma unroll
+  for (int i = 0; i < NL; i++) {
+    const int a = __shfl_sync(mask, m.v[i], lane0);
+    const int b = __shfl_sync(mask, m.v[i], lane0 + 1);
+    const int c = __shfl_sync(mask, m.v[i], lane0 + 2);
+    const int d = __shfl_sync(mask, m.v[i], lane0 + 3);
+    u.v[i] = (r == 0 || r == 3) ? b - a : (r == 1 ? d + c : d - c);  // E, G, F, E
+    v.v[i] = r == 0 ? d - c : (r == 2 ? d + c : b + a);              // F, H, G, H
+  }
+  const fe out = mul22(carry2<2>(u), carry2<2>(v));
+#pragma unroll
+  for (int i = 0; i < NL; i++) p[r * NL + i] = out.v[i];
+}
+
+// Replaces the 6 launches of pallas_group._padd_xx_kernel that the comb
+// tree makes (comb.tree_sum_xyzt): sums the m entries of every group in
+// shared memory, entry e + entry e + m/2, then m/4, down to 1 (the pairing
+// of comb.tree_sum_packed). in: [groups, m, 88] contiguous, 16-byte
+// aligned; out: [groups, 88]. m is a power of two, at most TREE_MAX_M.
+__global__ void __launch_bounds__(TREE_THREADS, 4)
+tree_sum_xyzt_kernel(const int* __restrict__ in, int* __restrict__ out, long long groups,
+                     int m) {
+  __shared__ int4 sm4[TREE_GROUPS * TREE_MAX_M * PACKED / 4];
+  int* sm = reinterpret_cast<int*>(sm4);
+  const long long g0 = (long long)blockIdx.x * TREE_GROUPS;
+  const int ng = (int)(groups - g0 < TREE_GROUPS ? groups - g0 : TREE_GROUPS);
+  const int per = m * PACKED;
+  const int4* src = reinterpret_cast<const int4*>(in + g0 * per);
+  for (int i = threadIdx.x; i < ng * per / 4; i += TREE_THREADS) sm4[i] = src[i];
+  __syncthreads();
+  const int quad = threadIdx.x >> 2, r = threadIdx.x & 3, lane0 = threadIdx.x & 28;
+  const unsigned mask = 0xFu << lane0;
+  for (int half = m >> 1; half > 0; half >>= 1) {
+    for (int k = quad; k < ng * half; k += TREE_THREADS / 4) {
+      int* g = sm + (k / half) * per;
+      const int e = k % half;
+      quad_padd(g + e * PACKED, g + (e + half) * PACKED, r, mask, lane0);
+    }
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < ng * PACKED; i += TREE_THREADS)
+    out[g0 * PACKED + i] = sm[(i / PACKED) * per + i % PACKED];
+}
+
 // Replaces pallas_group._finish_kernel: R decompression (square-root
 // chain), rhs = R + [k]A, and the projective equality [s]B == rhs.
 // y [22, n]; sign [n]; acc [176, n] (rows 0..87 [s]B, 88..175 [k]A);
@@ -383,6 +486,14 @@ extern "C" int dr_padd_xx(const int* p, long long ldp, const int* q, long long l
   if (n > 0)
     padd_xx_kernel<<<blocks_for(n, 128), 128, 0, (cudaStream_t)stream>>>(
         p, ldp, q, ldq, out, ldo, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int dr_tree_sum_xyzt(const int* in, int* out, long long groups, int m,
+                                void* stream) {
+  if (groups > 0)
+    tree_sum_xyzt_kernel<<<blocks_for(groups, TREE_GROUPS), TREE_THREADS, 0,
+                           (cudaStream_t)stream>>>(in, out, groups, m);
   return (int)cudaGetLastError();
 }
 

@@ -15,14 +15,17 @@ common coin) and of round-certificate aggregation (``CertVerifier`` with
   over T lanes), one gather of every window's digit entry ([T, 64]), a
   pairwise tree over the point axis (log2 T additions over 64 T / 2 lanes
   and down), then the Horner combination of the 64 window sums (4
-  doublings + 1 addition per window on one point: 320 additions).
+  doublings + 1 addition per window on one point: 320 additions), and
+  the canonical form of the result.
 
-Points are limb-major [99, N] int32 (rows: X, Y, Z x 33 limbs), and
-every addition of :func:`msm_kernel` goes through
-``cuda_group381.padd381_xx``: the hand-written kernel for CUDA tensors,
-:func:`padd` for CPU tensors. The raw limbs equal the JAX
-``msm_kernel``'s. The gather and the final ``canonical`` are plain
-torch, as they are plain jnp in the JAX package.
+Points are limb-major [99, N] int32 (rows: X, Y, Z x 33 limbs). The
+table steps and tree levels of :func:`msm_kernel` go through
+``cuda_group381.padd381_xx`` (15 + log2 T launches), and the Horner chain
+with ``field381.canonical`` of its result through one
+``cuda_group381.horner381``: hand-written kernels for CUDA tensors, their
+plain versions (:func:`padd`, ``field381.canonical``) for CPU tensors. The
+raw limbs equal the JAX ``msm_kernel``'s. The gather is plain torch, as
+it is plain jnp in the JAX package; the host reads the canonical limbs.
 
 Scalars are taken mod r on the host; points arrive as host affine tuples
 (from ``bls12381.g1_decompress``) and return as one host affine tuple.
@@ -41,7 +44,7 @@ from dag_rider_tpu_torch.ops import cuda_group381 as G, field381 as F
 
 R_INT = 0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001
 P_INT = F.P_INT
-WINDOWS = 64  # 256-bit scalar capacity in 4-bit windows (r is 255 bits)
+WINDOWS = G.WINDOWS  # 256-bit scalar capacity in 4-bit windows (r is 255 bits)
 L = F.LIMBS
 ROWS = G.ROWS  # 99
 
@@ -61,13 +64,6 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def identity(n: int, device) -> torch.Tensor:
-    """n copies of the group identity (0 : 1 : 0), limb-major [99, n]."""
-    x = torch.zeros((ROWS, n), dtype=torch.int32, device=device)
-    x[L] = 1  # Y limb 0
-    return x
-
-
 # ---------------------------------------------------------------------------
 # Windowed tree-sum MSM on limb-major [99, N] points
 # ---------------------------------------------------------------------------
@@ -76,7 +72,7 @@ def identity(n: int, device) -> torch.Tensor:
 def _point_tables(x: torch.Tensor) -> torch.Tensor:
     """Radix-16 multiples [0..15]P of packed points [99, T] -> [16, 99, T]
     (15 additions over T lanes, each from the previous entry)."""
-    prev = identity(x.shape[1], x.device)
+    prev = G.identity(x.shape[1], x.device)
     steps = [prev]
     for _ in range(15):
         prev = G.padd381_xx(prev, x)
@@ -108,14 +104,17 @@ def window_sums(nibbles: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def horner_combine(w: torch.Tensor) -> torch.Tensor:
     """sum_w 16^w S_w from packed window sums [99, 64] -> [99, 1]: 4
-    doublings + 1 addition per window on a single point."""
-    acc = identity(1, w.device)
-    for i in range(WINDOWS):
-        for _ in range(4):
-            acc = G.padd381_xx(acc, acc)
-        j = WINDOWS - 1 - i
-        acc = G.padd381_xx(acc, w[:, j : j + 1])
-    return acc
+    doublings + 1 addition per window on a single point, in one
+    ``cuda_group381.horner381``."""
+    return G.horner381(w)[0]
+
+
+def _msm_limbs(
+    nibbles: torch.Tensor, px: torch.Tensor, py: torch.Tensor, pz: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MSM's raw accumulator [99, 1] and its canonical limbs [3, 33]."""
+    pts = torch.cat([px, py, pz], dim=-1).t().contiguous()  # [99, T]
+    return G.horner381(window_sums(nibbles, pts))
 
 
 def msm_kernel(
@@ -125,9 +124,9 @@ def msm_kernel(
 
     nibbles: int32[T, 64]; px/py/pz: int32[T, 33], all on one device. Pad
     slots use scalar 0 (maps to the identity). Returns one projective
-    point (X, Y, Z) [33]: 15 + log2 T + 320 additions."""
-    pts = torch.cat([px, py, pz], dim=-1).t().contiguous()  # [99, T]
-    acc = horner_combine(window_sums(nibbles, pts))
+    point (X, Y, Z) [33] of raw limbs: 15 + log2 T additions, then the
+    320-step Horner chain."""
+    acc, _ = _msm_limbs(nibbles, px, py, pz)
     return acc[0:L, 0], acc[L : 2 * L, 0], acc[2 * L :, 0]
 
 
@@ -176,9 +175,12 @@ def pack_inputs(
 
 
 def unpack_point(X, Y, Z) -> Optional[tuple]:
-    """Projective limb point -> host affine (x, y) tuple (None: identity)."""
-    canon = F.canonical(torch.stack([X, Y, Z])).cpu().numpy()
-    xi, yi, zi = (F.from_limbs(c) for c in canon)
+    """Projective limb point -> host affine (x, y) tuple (None: identity).
+
+    Takes the canonical limbs that ``cuda_group381.horner381`` writes;
+    the host reduces each coordinate mod p, so raw limbs of the same point
+    give the same tuple."""
+    xi, yi, zi = (F.from_limbs(c) % P_INT for c in torch.stack([X, Y, Z]).cpu().numpy())
     if zi == 0:
         return None
     z_inv = pow(zi, P_INT - 2, P_INT)
@@ -201,8 +203,8 @@ def msm(
     dev = resolve_device(device)
     t = _pad(len(points))
     arrays = pack_inputs(scalars, points, t)
-    X, Y, Z = msm_kernel(*(torch.from_numpy(a).to(dev) for a in arrays))
-    return unpack_point(X, Y, Z)
+    _, canon = _msm_limbs(*(torch.from_numpy(a).to(dev) for a in arrays))
+    return unpack_point(*canon)
 
 
 def sum_points(points: Sequence[tuple], device=None) -> Optional[tuple]:

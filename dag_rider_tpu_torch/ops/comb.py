@@ -144,7 +144,7 @@ def tree_sum_packed(entries: torch.Tensor) -> torch.Tensor:
     """Sum a power-of-two axis of packed XYZT points (plain torch).
 
     entries: [..., M, 4, 22]. Each level adds the first half to the cached
-    second half; this pairing order is the one the padd kernel's tree
+    second half; this pairing order is the one the tree kernel
     (:func:`cuda_group.tree_sum_xyzt`) uses, so the limbs agree."""
     acc = entries
     while acc.shape[-3] > 1:

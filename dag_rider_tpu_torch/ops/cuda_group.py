@@ -1,13 +1,16 @@
 """Edwards group kernels on the H100 — wrappers and their plain versions.
 
 Replaces ``dag_rider_tpu/ops/pallas_group.py``: ``_padd_xx_kernel``
-(:func:`padd_xx`, and :func:`tree_sum_xyzt` above it), ``_finish_kernel``
-(:func:`finish_check`) and ``_pow22523_kernel`` (:func:`pow22523`). The
-kernels are CUDA C++ for sm_90a in ``csrc/ed25519_group.cu``, one thread
-per lane over limb-major [rows, N] int32 operands. They are bound by
-integer multiply-adds (a point addition is 9 schoolbook 22x22 products;
-the finish tail ~290); their design keeps every limb in registers, so
-device memory sees one read of each operand and one write of the result.
+(:func:`padd_xx`, and the six levels of the comb tree in one
+:func:`tree_sum_xyzt`), ``_finish_kernel`` (:func:`finish_check`) and
+``_pow22523_kernel`` (:func:`pow22523`). The kernels are CUDA C++ for
+sm_90a in ``csrc/ed25519_group.cu``. They are bound by integer
+multiply-adds (a point addition is 9 schoolbook 22x22 products; the finish
+tail ~290). The per-lane kernels take one thread per lane over limb-major
+[rows, N] int32 operands and keep every limb in registers, so device
+memory sees one read of each operand and one write of the result. The
+tree kernel sums each group's 64 entries in shared memory, four threads
+per addition.
 
 Each wrapper takes its plain torch version for a CPU tensor and launches
 its kernel for a CUDA tensor; there is no other path. ``LAUNCHES`` counts
@@ -27,14 +30,16 @@ from dag_rider_tpu_torch.utils import build
 
 L = F.LIMBS  # 22
 ROWS = 4 * L  # 88
+TREE_MAX_M = 64  # entries per group the tree kernel holds in shared memory
 SOURCE = "dag_rider_tpu_torch/csrc/ed25519_group.cu"
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
-LAUNCHES = {"padd_xx": 0, "finish_check": 0, "pow22523": 0}
+LAUNCHES = {"padd_xx": 0, "tree_sum_xyzt": 0, "finish_check": 0, "pow22523": 0}
 
 _P, _N = ctypes.c_void_p, ctypes.c_longlong
 _SIGNATURES = {
     "dr_padd_xx": [_P, _N, _P, _N, _P, _N, _N, _P],
+    "dr_tree_sum_xyzt": [_P, _P, _N, ctypes.c_int, _P],
     "dr_finish_check": [_P, _P, _P, _P, _N, _P],
     "dr_pow22523": [_P, _P, _N, _P],
     "dr_field_mul": [_P, _P, _P, _N, _P],
@@ -115,21 +120,28 @@ def padd_xx(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 def tree_sum_xyzt(entries: torch.Tensor) -> torch.Tensor:
     """Sum M packed XYZT points per element: [..., M, 4, 22] -> [..., 4, 22].
 
-    Lays the points out limb-major as [88, M * flat] (lane = m * flat + f),
-    then halves the lane axis log2(M) times with :func:`padd_xx`, pairing
-    the first half with the second — the pairing of
-    :func:`comb.tree_sum_packed`, its plain version. M must be a power of two.
-    """
+    One launch for all log2(M) levels: each level adds entry m + M/2^k to
+    entry m, the first half to the second, as :func:`comb.tree_sum_packed`
+    (its plain version) pairs them. M must be a power of two, at most 64
+    on the card. The comb path hands over its gather output
+    [B, 2, 64, 4, 22] as it is."""
     *lead, m, four, limbs = entries.shape
-    if four != 4 or limbs != L or m & (m - 1):
+    if four != 4 or limbs != L or m < 1 or m & (m - 1):
         raise ValueError(f"expected [..., 2^k, 4, 22], got {tuple(entries.shape)}")
-    flat = math.prod(lead)
-    x = entries.reshape(flat, m, ROWS).permute(2, 1, 0).reshape(ROWS, m * flat)
-    while m > 1:
-        half = m // 2 * flat
-        x = padd_xx(x[:, :half], x[:, half:])
-        m //= 2
-    return x.t().reshape(*lead, 4, L)
+    if entries.dtype != torch.int32:
+        raise TypeError(f"entries: expected int32, got {entries.dtype}")
+    if entries.device.type == "cpu":
+        return comb.tree_sum_packed(entries)
+    if m > TREE_MAX_M:
+        raise ValueError(f"tree_sum_xyzt: at most {TREE_MAX_M} entries per group, got {m}")
+    x = entries.contiguous()
+    if x.data_ptr() % 16:  # the kernel reads 16-byte vectors
+        x = x.clone()
+    groups = math.prod(lead)
+    out = torch.empty((*lead, 4, L), dtype=torch.int32, device=x.device)
+    launch("dr_tree_sum_xyzt", x.device, x.data_ptr(), out.data_ptr(), groups, m)
+    LAUNCHES["tree_sum_xyzt"] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,19 +1,24 @@
-"""BLS12-381 G1 addition kernel on the H100 — wrappers and plain versions.
+"""BLS12-381 G1 kernels on the H100 — wrappers and plain versions.
 
 Replaces ``dag_rider_tpu/ops/pallas_group381.py``: ``_padd381_kernel``
-(:func:`padd381_xx`, and :func:`tree_sum_xyz381` above it). The kernel is
-CUDA C++ for sm_90a in ``csrc/bls381_group.cu``, one thread per lane over
-limb-major [99, N] int32 operands (rows: X, Y, Z x 33 limbs). It is bound
-by integer multiply-adds (12 general 33x33 products with their fold per
-addition); see the source for how the design handles the register
-pressure of 33-limb operands.
+(:func:`padd381_xx`, and :func:`tree_sum_xyz381` above it); and runs the
+jnp Horner combination and ``field381.canonical`` of
+``dag_rider_tpu/ops/bls_msm.py`` as one kernel (:func:`horner381`). The
+kernels are CUDA C++ for sm_90a in ``csrc/bls381_group.cu`` over
+limb-major [99, N] int32 points (rows: X, Y, Z x 33 limbs). One addition
+is 12 general 33x33 products with their fold; on the MSM's path the
+additions form dependent chains, so the kernels spread each addition over
+a block of six warps (one product per warp and stage, a field element
+across a warp's lanes, operands in shared memory); see the source.
 
-The MSM (:mod:`dag_rider_tpu_torch.ops.bls_msm`) routes every addition
-through :func:`padd381_xx`: the 15 table steps, the log2 T tree levels and
-the 320 Horner steps. Each wrapper takes its plain torch version for a CPU
-tensor and launches its kernel for a CUDA tensor; there is no other path.
-The plain version is :func:`padd`, the complete addition on coordinate
-tensors. ``LAUNCHES`` counts kernel launches.
+The MSM (:mod:`dag_rider_tpu_torch.ops.bls_msm`) runs its 15 table steps
+and log2 T tree levels through :func:`padd381_xx`, and its 320-step Horner
+chain with the canonical form of the result through one :func:`horner381`.
+Each wrapper takes its plain torch version for a CPU tensor and launches
+its kernel for a CUDA tensor; there is no other path. The plain versions
+are :func:`padd`, the complete addition on coordinate tensors, and the
+same chain of :func:`padd` followed by ``field381.canonical``.
+``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -30,10 +35,11 @@ from dag_rider_tpu_torch.utils import build
 L = F.LIMBS  # 33
 COORDS = 3
 ROWS = COORDS * L  # 99
+WINDOWS = 64  # window sums per Horner chain (4-bit windows of a 256-bit scalar)
 SOURCE = "dag_rider_tpu_torch/csrc/bls381_group.cu"
 
 #: kernel launches since the last :func:`reset_launches`
-LAUNCHES = {"padd381_xx": 0}
+LAUNCHES = {"padd381_xx": 0, "horner381": 0}
 
 _P, _N = ctypes.c_void_p, ctypes.c_longlong
 
@@ -41,16 +47,19 @@ Point = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # homogeneous (X, Y, Z)
 
 
 def reset_launches() -> None:
-    LAUNCHES["padd381_xx"] = 0
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 @functools.lru_cache(maxsize=None)
 def lib() -> ctypes.CDLL:
-    """The built ``bls381_group`` library with its C signature declared
+    """The built ``bls381_group`` library with its C signatures declared
     (built and loaded on the first launch)."""
     handle = build.library("bls381_group")
     handle.dr_padd381_xx.argtypes = [_P, _N, _P, _N, _P, _N, _N, _P]
     handle.dr_padd381_xx.restype = ctypes.c_int
+    handle.dr_horner381.argtypes = [_P, _N, _P, _P, _P]
+    handle.dr_horner381.restype = ctypes.c_int
     return handle
 
 
@@ -126,3 +135,44 @@ def tree_sum_xyz381(x: torch.Tensor, m: int) -> torch.Tensor:
         x = padd381_xx(x[:, :half], x[:, half:])
         m //= 2
     return x
+
+
+def identity(n: int, device) -> torch.Tensor:
+    """n copies of the group identity (0 : 1 : 0), limb-major [99, n]."""
+    x = torch.zeros((ROWS, n), dtype=torch.int32, device=device)
+    x[L] = 1  # Y limb 0
+    return x
+
+
+def horner381_plain(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`horner381`: the chain of :func:`padd` and
+    ``field381.canonical``."""
+    acc = identity(1, w.device)
+    for i in range(WINDOWS):
+        for _ in range(4):
+            acc = padd381_xx_plain(acc, acc)
+        j = WINDOWS - 1 - i
+        acc = padd381_xx_plain(acc, w[:, j : j + 1])
+    return acc, F.canonical(acc[:, 0].reshape(COORDS, L))
+
+
+def horner381(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """sum_j 16^j S_j of packed window sums w [99, 64] -> (raw [99, 1],
+    canonical [3, 33]).
+
+    The Horner chain of the MSM: from the identity, for window 63 down to
+    0, four doublings padd(acc, acc) and one addition padd(acc, S_j), in
+    the operand order of the JAX ``horner_combine``. The raw accumulator
+    is what the MSM returns as limbs; the canonical X, Y, Z limbs
+    (``field381.canonical``) are what the host reads."""
+    cuda_group.check_operand(w, ROWS, "w")
+    if w.shape[1] != WINDOWS:
+        raise ValueError(f"w: expected [{ROWS}, {WINDOWS}], got {tuple(w.shape)}")
+    if w.device.type == "cpu":
+        return horner381_plain(w)
+    raw = torch.empty((ROWS, 1), dtype=torch.int32, device=w.device)
+    canon = torch.empty((COORDS, L), dtype=torch.int32, device=w.device)
+    cuda_group.launch("dr_horner381", w.device, w.data_ptr(), w.stride(0), raw.data_ptr(),
+                      canon.data_ptr(), handle=lib())
+    LAUNCHES["horner381"] += 1
+    return raw, canon

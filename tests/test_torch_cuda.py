@@ -78,7 +78,17 @@ def test_tree_sum_kernel_equals_plain_tree(dev):
     entries = _reduced((B, 2, 64, 4), 5).to(dev)
     got = CG.tree_sum_xyzt(entries)
     torch.cuda.synchronize()
-    assert CG.LAUNCHES["padd_xx"] == 6
+    assert (CG.LAUNCHES["tree_sum_xyzt"], CG.LAUNCHES["padd_xx"]) == (1, 0)
+    assert torch.equal(got, comb.tree_sum_packed(entries))
+
+
+@pytest.mark.parametrize("lead, m", [((3,), 64), ((5, 2), 8), ((2,), 1)])
+def test_tree_sum_kernel_on_odd_group_counts_and_short_groups(dev, lead, m):
+    """An odd number of groups leaves the last block one group; M < 64."""
+    entries = _reduced((*lead, m, 4), 8).to(dev)
+    got = CG.tree_sum_xyzt(entries)
+    torch.cuda.synchronize()
+    assert CG.LAUNCHES["tree_sum_xyzt"] == 1
     assert torch.equal(got, comb.tree_sum_packed(entries))
 
 
@@ -153,7 +163,36 @@ def test_verifier_on_cuda_matches_cpu_oracle_through_kernels(dev):
     assert torch.equal(ver.comb_tables()[0].cpu(), tables_cpu.reshape(-1, 88))
     CG.reset_launches()
     got = ver.verify_rounds([batch[:10], batch[10:]])
-    assert CG.LAUNCHES == {"padd_xx": 6, "finish_check": 1, "pow22523": 0}
+    assert CG.LAUNCHES == {"padd_xx": 0, "tree_sum_xyzt": 1, "finish_check": 1, "pow22523": 0}
     want = CPUVerifier(reg).verify_batch(batch)
     assert got[0] + got[1] == want
     assert want[:24] == [True] * 24 and not any(want[24:])
+
+
+def test_tree_sum_kernel_on_corrupted_signature_entries(dev):
+    """The gather's own [B, 2, 64, 4, 22] output for 128 real signatures,
+    64 seeded rows of them corrupted eight ways (as the verify path meets
+    them), equals comb.tree_sum_packed through one launch, and the accept
+    mask built on it equals the host oracle."""
+    reg, vs = _signed(16, 128, 9)
+    rng = np.random.default_rng(9)
+    bad = [int(i) for i in rng.choice(len(vs), 64, replace=False)]
+    batch = list(vs)
+    for k in range(0, len(bad), 8):
+        rows = bad[k : k + 8]
+        other = next(v for j, v in enumerate(vs) if j not in rows)  # its signature goes on rows[7]
+        for i, v in zip(rows, _corrupt([vs[i] for i in rows] + [other])):
+            batch[i] = v
+    ver = CUDAVerifier(reg, device=dev)
+    u8, i32 = ver.prepare_batch(batch)
+    x = unpack(torch.from_numpy(u8).to(dev), torch.from_numpy(i32).to(dev))
+    tables, b_tab = ver.comb_tables()
+    entries = comb.gather_entries(x.s_nibbles, x.k_nibbles, x.key_idx, tables, b_tab)
+    CG.reset_launches()
+    acc = CG.tree_sum_xyzt(entries)
+    torch.cuda.synchronize()
+    assert CG.LAUNCHES["tree_sum_xyzt"] == 1
+    assert torch.equal(acc, comb.tree_sum_packed(entries))
+    mask = (CG.finish_check(x.r_y, x.r_sign, acc) & x.a_valid & x.prevalid).tolist()
+    assert mask == CPUVerifier(reg).verify_batch(batch)
+    assert not any(mask[i] for i in bad)

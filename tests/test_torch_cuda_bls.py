@@ -5,8 +5,10 @@
 ``padd381_xx_plain`` must give the same int32 limbs exactly. Widths are
 the MSM's at n = 256: the first tree level of the coin's T = 128 MSM adds
 64 * 128 / 2 = 4,096 lanes, the certificate's T = 256 MSM 8,192, and the
-Horner chain one lane. Then the MSM on the card against the host group
-law, with its launch count, and the coin and certificate seams.
+table steps 128 lanes. ``horner381`` (the Horner chain and the canonical
+form in one launch) against its plain version on real and edge window
+sums. Then the MSM on the card against the host group law, with its
+launch counts, and the coin and certificate seams.
 
 These tests need a card and skip without one. They import no JAX, so
 they run on a machine without it:
@@ -56,7 +58,7 @@ def _operands(width, seed):
     return torch.from_numpy(p), torch.from_numpy(q)
 
 
-@pytest.mark.parametrize("width", [1, 4096, 8192, 65536])
+@pytest.mark.parametrize("width", [1, 128, 4096, 8192, 65536])
 def test_padd381_kernel_equals_plain(dev, width):
     p, q = _operands(width, width)
     got = G.padd381_xx(p.to(dev), q.to(dev))
@@ -82,7 +84,7 @@ def test_tree_sum_kernel_equals_plain_tree(dev):
     assert torch.equal(got.cpu(), G.tree_sum_xyz381(x, 128))
 
 
-@pytest.mark.parametrize("t, n, launches", [(128, 86, 342), (256, 171, 343)])
+@pytest.mark.parametrize("t, n, launches", [(128, 86, 22), (256, 171, 23)])
 def test_msm_on_card_equals_host_and_plain(dev, t, n, launches):
     rng = random.Random(t)
     scalars = [rng.randrange(bls.R) for _ in range(n)]
@@ -90,7 +92,7 @@ def test_msm_on_card_equals_host_and_plain(dev, t, n, launches):
     arrays = bls_msm.pack_inputs(scalars, points, t)
     got = bls_msm.msm_kernel(*(torch.from_numpy(a).to(dev) for a in arrays))
     torch.cuda.synchronize()
-    assert G.LAUNCHES["padd381_xx"] == launches
+    assert G.LAUNCHES == {"padd381_xx": launches, "horner381": 1}
     G.reset_launches()
     plain = bls_msm.msm_kernel(*(torch.from_numpy(a) for a in arrays))
     for g, w in zip(got, plain):
@@ -123,3 +125,45 @@ def test_coin_and_certificate_on_card_equal_host(dev):
     host = CertVerifier(reg, quorum=4, msm="host")
     assert cert.agg_sig == host.make_certificate(2, entries).agg_sig
     assert cv.verify_certificate(cert) is True
+
+
+def _window_sums(t, seed):
+    """Real window sums [99, 64] of an MSM over t random points."""
+    rng = random.Random(seed)
+    scalars = [rng.randrange(bls.R) for _ in range(t)]
+    points = [bls.g1_mul(rng.randrange(1, bls.R)) for _ in range(t)]
+    nib, px, py, pz = (torch.from_numpy(a) for a in bls_msm.pack_inputs(scalars, points, t))
+    return bls_msm.window_sums(nib, torch.cat([px, py, pz], dim=-1).t().contiguous())
+
+
+def _edge_window_sums(kind):
+    w = _window_sums(4, 3)
+    if kind == "identity":
+        w = torch.zeros_like(w)
+        w[F.LIMBS] = 1
+    elif kind == "all equal":
+        w = w[:, :1].repeat(1, 64)
+    else:  # X = 0 on every window
+        w = w.clone()
+        w[: F.LIMBS] = 0
+    return w
+
+
+@pytest.mark.parametrize("kind", ["real", "identity", "all equal", "x zero"])
+def test_horner381_kernel_equals_plain(dev, kind):
+    w = _window_sums(8, 7) if kind == "real" else _edge_window_sums(kind)
+    raw, canon = G.horner381(w.to(dev))
+    torch.cuda.synchronize()
+    assert G.LAUNCHES == {"padd381_xx": 0, "horner381": 1}
+    want_raw, want_canon = G.horner381_plain(w)
+    assert torch.equal(raw.cpu(), want_raw)
+    assert torch.equal(canon.cpu(), want_canon)
+
+
+def test_horner381_kernel_on_strided_window_sums(dev):
+    w = _window_sums(8, 8)
+    wide = torch.cat([w, w], dim=1).to(dev)
+    raw, canon = G.horner381(wide[:, 64:])  # row stride 128
+    torch.cuda.synchronize()
+    want_raw, want_canon = G.horner381_plain(w)
+    assert torch.equal(raw.cpu(), want_raw) and torch.equal(canon.cpu(), want_canon)
