@@ -22,7 +22,11 @@ signatures). The script:
    at the path's widths, exactly, timed with CUDA events beside the plain
    version and a lower bound on the card's time: the per-lane addition
    ``padd_xx`` (the tree's unit kernel), the one-launch comb tree
-   ``tree_sum_xyzt``, the finish tail, ``pow22523`` and the field multiply;
+   ``tree_sum_xyzt``, the finish tail (on the real rows with the edge rows
+   of ``tests/torch_edge_rows.py`` mixed in) and ``pow22523`` (with edge
+   limbs mixed in), each also replayed in a CUDA graph, and the field
+   multiply, whose kernel alone is also timed in a CUDA graph at 4,096
+   and 262,144 lanes;
 4. path phase: launch counters set to 0, one ``verify_rounds`` call, the
    counters read (one ``tree_sum_xyzt`` and one ``finish_check`` launch,
    no ``padd_xx``); the mask must equal the host oracle on the corrupted
@@ -72,6 +76,7 @@ BLS_THRESHOLD = BLS_N // 3 + 1  # f + 1 = 86 shares combine into the coin
 CERT_QUORUM = 2 * (BLS_N // 3) + 1  # 2f + 1 = 171 signatures per certificate
 BAD_SHARE = 17  # index of the corrupted share, among the first f + 1
 WIDE_LANES = 65536  # padd381_xx's widest check, beyond the path's widths
+FIELD_MUL_WIDE = 262144  # field_mul's graph time at a width that fills the card
 MSM_REPEATS = 5
 
 # Published H100 SXM peak memory rate (NVIDIA data sheet), used for the
@@ -299,22 +304,38 @@ def main() -> int:
            tree_adds * (8 * IMAD_PER_PRODUCT + 22 * d2_nnz), flat_n)
     tree_ms = report[-1]["ms"]
 
-    got = CG.finish_check(x.r_y, x.r_sign, acc)
-    want = CG.finish_check_plain(x.r_y, x.r_sign, acc)
+    # the real rows with the edge rows of tests/torch_edge_rows.py (valid,
+    # wrong [s]B, non-square y, x = 0 with sign 1, y >= p, 8-torsion [k]A,
+    # the identity) on every 64th row
+    sys.path.insert(0, os.path.join(root, "tests"))
+    from torch_edge_rows import edge_limbs, edge_rows, tiled
+
+    _, e_y, e_sign, e_acc = edge_rows()
+    mix = slice(0, total, 64)
+    n_mix = len(range(0, total, 64))
+    f_y, f_sign, f_acc = x.r_y.clone(), x.r_sign.clone(), acc.clone()
+    f_y[mix], f_sign[mix], f_acc[mix] = (tiled(t, n_mix).to(dev) for t in (e_y, e_sign, e_acc))
+    got = CG.finish_check(f_y, f_sign, f_acc)
+    want = CG.finish_check_plain(f_y, f_sign, f_acc)
     # finish: 285 general products + the D, SQRT_M1 and D2 constant products
     finish_imads = 285 * IMAD_PER_PRODUCT + 22 * (
         int((F.D != 0).sum()) + int((F.SQRT_M1 != 0).sum()) + d2_nnz)
     record("finish_check", "dag_rider_tpu/ops/pallas_group.py:273", got, want,
-           cuda_ms(lambda: CG.finish_check(x.r_y, x.r_sign, acc), 20),
-           cuda_ms(lambda: CG.finish_check_plain(x.r_y, x.r_sign, acc), 2, 1),
+           cuda_ms(lambda: CG.finish_check(f_y, f_sign, f_acc), 20),
+           cuda_ms(lambda: CG.finish_check_plain(f_y, f_sign, f_acc), 2, 1),
            (22 + 1 + 176 + 1) * 4 * total, total * finish_imads, total)
+    print(f"  {n_mix} edge rows mixed in; {int(want.sum())} of {total} rows accepted")
+    report[-1]["graph_ms"] = graph_ms(lambda: CG.finish_check(f_y, f_sign, f_acc), 20)
 
     zr = np.random.default_rng(SEED + 1)
     z = torch.from_numpy(zr.integers(-4095, 4096, (22, total), dtype=np.int32)).to(dev)
+    z[:, mix] = tiled(edge_limbs(), n_mix).t().to(dev)
     got = CG.pow22523(z)
-    record("pow22523", "dag_rider_tpu/ops/pallas_group.py:264", got, CG.pow22523_plain(z),
+    want = CG.pow22523_plain(z)
+    record("pow22523", "dag_rider_tpu/ops/pallas_group.py:264", got, want,
            cuda_ms(lambda: CG.pow22523(z), 20), cuda_ms(lambda: CG.pow22523_plain(z), 2, 1),
            2 * 22 * 4 * total, total * 262 * IMAD_PER_PRODUCT, total)
+    report[-1]["graph_ms"] = graph_ms(lambda: CG.pow22523(z), 20)
 
     a = torch.from_numpy(zr.integers(-4095, 4096, (total, 22), dtype=np.int32)).to(dev)
     b = torch.from_numpy(zr.integers(-4095, 4096, (total, 22), dtype=np.int32)).to(dev)
@@ -322,6 +343,29 @@ def main() -> int:
     record("field_mul", "dag_rider_tpu/ops/pallas_field.py:43", got, cuda_field.mul_plain(a, b),
            cuda_ms(lambda: cuda_field.mul(a, b), 50), cuda_ms(lambda: cuda_field.mul_plain(a, b), 5),
            3 * 22 * 4 * total, total * IMAD_PER_PRODUCT, total)
+    # the kernel alone (limb-major operands, no transposes) replayed in a
+    # CUDA graph, at the path's width and at a width that fills the card
+    fm_widths = {}
+    for lanes in (total, FIELD_MUL_WIDE):
+        fa = torch.from_numpy(zr.integers(-4095, 4096, (22, lanes), dtype=np.int32)).to(dev)
+        fb = torch.from_numpy(zr.integers(-4095, 4096, (22, lanes), dtype=np.int32)).to(dev)
+        fo = torch.empty_like(fa)
+
+        def fm_launch():
+            CG.launch("dr_field_mul", dev, fa.data_ptr(), fb.data_ptr(), fo.data_ptr(), lanes)
+
+        fm_launch()
+        torch.cuda.synchronize()
+        if not torch.equal(fo.t(), cuda_field.mul_plain(fa.t(), fb.t())):
+            fail(f"field_mul disagrees with its plain version at {lanes} lanes")
+        g_ms = graph_ms(fm_launch, 50)
+        b_ms, b_by = bound(3 * 22 * 4 * lanes, lanes * IMAD_PER_PRODUCT, imad_per_s)
+        fm_widths[str(lanes)] = {"graph_ms": g_ms, "bound_ms": b_ms, "bound_by": b_by,
+                                 "bound_share": b_ms / g_ms}
+        print(f"  field_mul kernel alone at {lanes} lanes: {g_ms:.4f} ms in a CUDA graph, bound "
+              f"{b_ms:.4f} ms by {b_by} ({b_ms / g_ms:.1%} of the bound's rate)")
+    report[-1]["widths"] = fm_widths
+    del fa, fb, fo  # before the path phase's peak-memory reading
     del entries, lm, p, q, acc, acc_plain
 
     # -- path phase -----------------------------------------------------------
@@ -556,7 +600,7 @@ def bls_phases(dev, imad_per_s: float) -> list:
             sizes.append(len(points))
             return bls_msm.msm(scalars, points)
 
-        host = ThresholdCoin(keys, 0, BLS_N)
+        host = ThresholdCoin(keys, 0, BLS_N, msm="host")
         card = ThresholdCoin(keys, 0, BLS_N, msm=card_msm)
         for coin in (host, card):
             for src, share in waves[wave].items():

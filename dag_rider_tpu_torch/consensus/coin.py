@@ -1,8 +1,8 @@
 """Common-coin (wave leader election) implementations.
 
 The port's copy of ``dag_rider_tpu/consensus/coin.py``. ``ThresholdCoin``
-takes ``msm=``: None combines shares with the host group law (the
-oracle), ``ops.bls_msm.msm`` on the card.
+combines shares with the G1 MSM of ``ops.bls_msm`` on the card unless the
+caller asks for the host group law (``msm="host"``, the oracle).
 
 The reference's ``chooseLeader`` is a stub that always returns 1
 (``process/process.go:386-392``) with a TODO naming the real design: "PKI
@@ -25,6 +25,7 @@ Three implementations:
 from __future__ import annotations
 
 import abc
+import functools
 from typing import Optional
 
 
@@ -92,6 +93,21 @@ class RoundRobinCoin(CommonCoin):
         return wave % self.n
 
 
+def _resolve_msm(msm, device):
+    """The ``msm=`` backend handed to ``crypto.threshold``: None for the
+    host group law, else a callable. ``device`` is read only by
+    "device"."""
+    if msm is None or msm == "host":
+        return None
+    if msm == "device":
+        from dag_rider_tpu_torch.ops import bls_msm
+
+        return functools.partial(bls_msm.msm, device=bls_msm.resolve_device(device))
+    if callable(msm):
+        return msm
+    raise ValueError(f'coin MSM must be "device", "host" or a callable, got {msm!r}')
+
+
 class ThresholdCoin(CommonCoin):
     """(f+1)-of-n threshold-BLS coin (crypto/threshold.py) — the design
     the reference's TODO names (``process.go:388``).
@@ -102,16 +118,23 @@ class ThresholdCoin(CommonCoin):
     and cached; if a combination fails (a Byzantine share slipped in),
     shares are verified individually, the bad ones discarded, and the
     remainder re-combined — so one corrupt share cannot stall the coin.
+
+    ``msm``: "device" (the default: ``ops.bls_msm.msm`` on ``device``,
+    which is ``cuda`` unless the caller passes ``"cpu"`` for the plain
+    torch path; raises at construction when there is no card), "host"
+    (the host group law, the oracle; None, its spelling before the device
+    default, still selects it), or a callable ``(scalars, points) ->
+    point`` used as it is.
     """
 
-    def __init__(self, keys, index: int, n: int, *, msm=None):
+    def __init__(self, keys, index: int, n: int, *, msm="device", device=None):
         from dag_rider_tpu_torch.crypto import threshold as th
 
         self._th = th
         self.keys = keys
         self.index = index
         self.n = n
-        self._msm = msm
+        self._msm = _resolve_msm(msm, device)
         #: epoch key schedule: (first_wave, keys) entries,
         #: ascending. ``keys`` above always aliases the newest entry;
         #: :meth:`_keys_for` resolves the keys a given wave signs and

@@ -9,39 +9,53 @@
 // passes + 3 final after a multiply), masks, arithmetic shifts and folds
 // (TOP_FOLD, x19, (t & 7) << 9, 23104 at columns 44/45). The limbs out of
 // every function here equal the torch and JAX twins' limbs bit for bit,
-// and the reduced invariant (|limb0| < 2^14, |limb_i| < 2^13) keeps every
-// product column below 2^31, so no operation overflows int32.
+// and the reduced invariant (|limb0| < 2^14, |limb_i| < 2^13) keeps the sum
+// of the absolute values of a product column's terms below 2^31, so a
+// column summed in any order is exact in int32. Products are schoolbook in
+// full (no symmetric squaring).
 //
-// Layout: limb-major [rows, N] int32, one thread per lane (batch element),
-// for the per-lane kernels. The 32 threads of a warp read 32 neighbouring
-// int32 of each row.
+// What bounds these kernels: integer operations (int32 multiply-adds,
+// shifts, masks). One 22x22 product is 484 IMADs plus ~600 carry/fold
+// operations, a point addition 9 products.
 //
-// What bounds these kernels: integer multiply-adds. One 22x22 product is
-// 484 IMADs plus ~600 carry/fold operations, a point addition is 9
-// products, the finish tail ~290, all dependent chains held per thread.
-// The per-lane design keeps every limb in registers (arrays indexed only
-// by compile-time constants under full unrolling) so device memory sees
-// one read of each operand and one write of the result; the long squaring
-// runs of the square-root chain are rolled loops (#pragma unroll 1) to
-// keep code size sane. An addition keeps p, the cached q and 46 product
-// columns live near the 255-register ceiling (ptxas -v reports registers
-// and any spill per kernel).
+// Per lane (padd_xx_kernel, field_mul_kernel): one thread per lane over
+// limb-major [rows, N] int32, every limb in registers, so device memory
+// sees one read of each operand and one write of the result.
 //
-// The comb tree sums the 64 gathered entries of every (signature, side)
-// group: 63 additions in 6 levels. Run as 6 per-lane launches, every level
-// went out to device memory and back, and a limb-major copy of the whole
-// gather output came before the first. tree_sum_xyzt_kernel reads the
-// gather's own [groups, 64, 88] output once into shared memory (22.5 KB a
-// group, two groups a block) and runs all six levels there, writing one
-// point per group. Each addition belongs to a quad of four threads: thread
-// r computes row r of the row-stacked products of comb.padd_cached (the
-// cached form of q, then (A, B, C, D), then (EF, GH, FG, EH)), with the
-// rows exchanged by shuffles inside the quad. So a thread holds two
-// operand rows and 46 columns instead of a whole addition, the critical
-// path is three products instead of nine, and the deep levels (16, 8, ...,
-// 1 additions a group) keep more threads busy than one thread per addition
-// would. This does the earlier design's later work: shared memory and
-// threads that cooperate on one addition.
+// The comb tree (tree_sum_xyzt_kernel) sums the 64 gathered entries of
+// every (signature, side) group, 63 additions in 6 levels, in one launch:
+// the gather's own [groups, 64, 88] output goes once into shared memory
+// (22.5 KB a group, two groups a block) and a quad of four threads runs
+// each addition, thread r computing row r of the row-stacked products of
+// comb.padd_cached with the rows exchanged by shuffles inside the quad.
+//
+// The finish tail (finish_kernel) and its square-root chain
+// (pow22523_kernel) are ~287 and 262 dependent products per signature.
+// They first ran one thread per signature in 32-thread blocks: 4,096
+// signatures were 128 one-warp blocks, one warp on one of an SM's four
+// schedulers, 255 registers, and each thread a chain of ~3 x 10^5
+// dependent instructions; the kernel took one thread's latency and no
+// occupancy hid it. Now a half-warp of G = 16 lanes shares each signature
+// (wmul), two signatures a warp. Lane l holds limbs 2 l and 2 l + 1 (R = 2
+// virtual lanes a lane); a product's 22 x 22 terms are split 22 to a limb
+// position (column v and column 22 + v), the multiplier broadcast from
+// shared memory and the multiplicand read from a doubled copy there; every
+// carry, column pass and fold is a lane-parallel step with its carries
+// moved by shuffles. 4,096 signatures are then 2,048 warps spread over
+// every SM and all four schedulers. What bounds the design is the SM's
+// int32 rate (64 lanes a clock, so each integer warp instruction holds a
+// scheduler for two clocks): a warp issues ~180 integer instructions for
+// its two products, against 484 useful multiply-adds each, because each
+// term's multiply-add is issued for both of a limb position's columns
+// under a predicate, and 5 lanes of a group hold no limb. A whole warp a
+// signature (G = 32) was slower on the H100: a shuffle then serves one
+// limb of one signature, and a multiplicand load one limb position. The
+// five canonical forms of the tail (root1, root2, x's zero test and parity
+// from one form, the two equality tests) stay sequential: every lane of
+// the group runs canon22 on its own copy of the limbs, read from shared
+// memory (the same instruction count as one lane, 5 of the tail's ~300
+// field operations). finish_kernel reads the tree's [B, 2, 4, 22] output
+// and r_y [B, 22] as they are, a lane its own limbs.
 
 #include <cuda_runtime.h>
 
@@ -102,13 +116,6 @@ __device__ __forceinline__ fe sub22(const fe& a, const fe& b) {
 }
 
 __device__ __forceinline__ fe dbl22(const fe& a) { return add22(a, a); }
-
-__device__ __forceinline__ fe neg22(const fe& a) {
-  fe r;
-#pragma unroll
-  for (int i = 0; i < NL; i++) r.v[i] = -a.v[i];
-  return carry2<2>(r);
-}
 
 // ---------------------------------------------------------------------------
 // Multiply (field.mul): schoolbook columns, 2 column passes, the 2^255 == 19
@@ -174,34 +181,6 @@ __device__ __forceinline__ fe mul22_const(const fe& a, const int (&k)[NL]) {
   return reduce_columns(c);
 }
 
-template <int N>
-__device__ __forceinline__ fe nsq(fe x) {
-  if (N <= 4) {
-#pragma unroll
-    for (int i = 0; i < N; i++) x = mul22(x, x);
-  } else {
-#pragma unroll 1
-    for (int i = 0; i < N; i++) x = mul22(x, x);
-  }
-  return x;
-}
-
-// z^(2^252 - 3): the RFC 8032 square-root exponent chain (field.pow22523).
-__device__ __forceinline__ fe pow22523(const fe& z) {
-  fe t0 = mul22(z, z);                    // 2
-  fe t1 = mul22(z, nsq<2>(t0));           // 9
-  t0 = mul22(t0, t1);                     // 11
-  t0 = mul22(t1, mul22(t0, t0));          // 31
-  t0 = mul22(nsq<5>(t0), t0);             // 2^10 - 1
-  t1 = mul22(nsq<10>(t0), t0);            // 2^20 - 1
-  fe t2 = mul22(nsq<20>(t1), t1);         // 2^40 - 1
-  t1 = mul22(nsq<10>(t2), t0);            // 2^50 - 1
-  t2 = mul22(nsq<50>(t1), t1);            // 2^100 - 1
-  fe t3 = mul22(nsq<100>(t2), t2);        // 2^200 - 1
-  t1 = mul22(nsq<50>(t3), t1);            // 2^250 - 1
-  return mul22(nsq<2>(t1), z);            // 2^252 - 3
-}
-
 // ---------------------------------------------------------------------------
 // Canonical form and predicates (field._seq_carry_fold / canonical / ...)
 // ---------------------------------------------------------------------------
@@ -240,20 +219,6 @@ __device__ __forceinline__ fe canon22(fe x) {
   t.v[NL - 1] &= 0x7;                  // == x - p
   return ge_p ? t : x;
 }
-
-__device__ __forceinline__ bool is_zero22(const fe& x) {
-  fe c = canon22(x);
-  bool z = true;
-#pragma unroll
-  for (int i = 0; i < NL; i++) z = z && (c.v[i] == 0);
-  return z;
-}
-
-__device__ __forceinline__ bool eq22(const fe& a, const fe& b) {
-  return is_zero22(sub22(a, b));
-}
-
-__device__ __forceinline__ int parity22(const fe& x) { return canon22(x).v[0] & 1; }
 
 // ---------------------------------------------------------------------------
 // Group ops
@@ -407,60 +372,359 @@ tree_sum_xyzt_kernel(const int* __restrict__ in, int* __restrict__ out, long lon
     out[g0 * PACKED + i] = sm[(i / PACKED) * per + i % PACKED];
 }
 
-// Replaces pallas_group._finish_kernel: R decompression (square-root
-// chain), rhs = R + [k]A, and the projective equality [s]B == rhs.
-// y [22, n]; sign [n]; acc [176, n] (rows 0..87 [s]B, 88..175 [k]A);
-// out [n] = 1 iff R is valid and [s]B == R + [k]A.
-__global__ void __launch_bounds__(32)
-finish_kernel(const int* __restrict__ y_in, const int* __restrict__ sign_in,
-              const int* __restrict__ acc, int* __restrict__ out, long long n) {
-  long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  const int d[NL] = D_LIMBS;
-  const int sqrt_m1[NL] = SQRT_M1_LIMBS;
-  fe y = load_fe(y_in, n, 0, lane);
-  int sign = sign_in[lane];
-  fe one;
-#pragma unroll
-  for (int i = 0; i < NL; i++) one.v[i] = (i == 0);
+// ---------------------------------------------------------------------------
+// A field element across a group of G = 16 lanes, a half-warp: two
+// elements a warp. Lane l of the group holds R = 2 consecutive limbs,
+// virtual lanes v = R l + r (r < R): limb v for v < 22. What virtual
+// lanes 22 and up hold is of no use and is never masked: every shift moves
+// values up (v - 1 to v), and the only values read downwards are limb 21's
+// carry (into limb 0) and columns 44 and 45 (virtual lanes 22 and 23 of a
+// product's upper columns, which the column passes keep exact), so nothing
+// above limb 21 reaches limbs 0..21, and stores write limbs 0..21 only.
+// Every lane of the warp calls these functions together (the group's
+// choices are selects, not branches), so the shuffles and __syncwarp see
+// the whole warp.
+// ---------------------------------------------------------------------------
 
-  fe y2 = mul22(y, y);
-  fe u = sub22(y2, one);
-  fe v = add22(mul22_const(y2, d), one);
-  fe v3 = mul22(mul22(v, v), v);
-  fe v7 = mul22(mul22(v3, v3), v);
-  fe cand = mul22(mul22(u, v3), pow22523(mul22(u, v7)));
-  fe vxx = mul22(v, mul22(cand, cand));
-  bool root1 = eq22(vxx, u);
-  bool root2 = eq22(vxx, neg22(u));
-  fe x = root1 ? cand : mul22_const(cand, sqrt_m1);
-  bool valid = root1 || root2;
-  bool x_zero = is_zero22(x);
-  valid = valid && !(x_zero && sign == 1);
-  bool flip = parity22(x) != sign;
-  if (flip) x = neg22(x);
+#define FULL_MASK 0xFFFFFFFFu
+#define BB_STRIDE 45  // ints of a group's multiplicand copy: odd, so the two
+                      // groups of a warp read other banks
+constexpr int G = 16;      // lanes a group
+constexpr int R = 32 / G;  // limbs (virtual lanes) a lane
 
-  fe rp[4] = {x, y, one, mul22(x, y)};
-  fe ka[4], kc[4], rhs[4];
-#pragma unroll
-  for (int c = 0; c < 4; c++) ka[c] = load_fe(acc, n, 4 * NL + c * NL, lane);
-  to_cached(ka, kc);
-  padd_core(rp, kc, rhs);
+struct W {
+  int v[R];
+};
 
-  fe lhs[4];
+// A group's scratch in shared memory.
+struct GroupScratch {
+  int* a;  // [24], 16-byte aligned: the multiplier (broadcast reads)
+  int* b;  // [44]: the multiplicand, twice
+  int* c;  // [24], 16-byte aligned: limbs of a canonical form
+};
+
+// y[v] = x[v - 1] across the group's virtual lanes, y[0] = 0.
+__device__ __forceinline__ void vshift_up(const int (&x)[R], int (&y)[R], int l) {
+  const int up = __shfl_up_sync(FULL_MASK, x[R - 1], 1, G);
+  y[0] = l == 0 ? 0 : up;
 #pragma unroll
-  for (int c = 0; c < 4; c++) lhs[c] = load_fe(acc, n, c * NL, lane);
-  bool ex = is_zero22(sub22(mul22(lhs[0], rhs[2]), mul22(rhs[0], lhs[2])));
-  bool ey = is_zero22(sub22(mul22(lhs[1], rhs[2]), mul22(rhs[1], lhs[2])));
-  out[lane] = (ex && ey && valid) ? 1 : 0;
+  for (int r = 1; r < R; r++) y[r] = x[r - 1];
 }
 
-// Replaces pallas_group._pow22523_kernel: z^(2^252 - 3), z [22, n].
-__global__ void __launch_bounds__(32)
+// y[v] = x[v - 1] across the group's virtual lanes, and y[0] = x[21]: the
+// carry out of limb (or column) 21 wraps to the bottom in the same shuffle.
+__device__ __forceinline__ void vrot_up(const int (&x)[R], int (&y)[R], int l) {
+  y[0] = __shfl_sync(FULL_MASK, x[R - 1], l == 0 ? (NL - 1) / R : l - 1, G);
+#pragma unroll
+  for (int r = 1; r < R; r++) y[r] = x[r - 1];
+}
+
+// The value of virtual lane V (a compile-time constant), in every lane.
+template <int V>
+__device__ __forceinline__ int vget(const int (&x)[R]) {
+  return __shfl_sync(FULL_MASK, x[V % R], V / R, G);
+}
+
+// field.carry: STEPS parallel carry steps, the carry out of limb 21 folded
+// back into limb 0 as TOP_FOLD.
+template <int STEPS>
+__device__ __forceinline__ W wcarry(W x, int l) {
+#pragma unroll
+  for (int s = 0; s < STEPS; s++) {
+    int c[R], up[R];
+#pragma unroll
+    for (int r = 0; r < R; r++) c[r] = x.v[r] >> LIMB_BITS;
+    vrot_up(c, up, l);  // limb 0 takes the carry out of limb 21
+#pragma unroll
+    for (int r = 0; r < R; r++) x.v[r] = (x.v[r] & LIMB_MASK) + up[r];
+    if (l == 0) x.v[0] += up[0] * (TOP_FOLD - 1);
+  }
+  return x;
+}
+
+__device__ __forceinline__ W wadd(const W& a, const W& b, int l) {
+  W r;
+#pragma unroll
+  for (int k = 0; k < R; k++) r.v[k] = a.v[k] + b.v[k];
+  return wcarry<2>(r, l);
+}
+
+__device__ __forceinline__ W wsub(const W& a, const W& b, int l) {
+  W r;
+#pragma unroll
+  for (int k = 0; k < R; k++) r.v[k] = a.v[k] - b.v[k];
+  return wcarry<2>(r, l);
+}
+
+__device__ __forceinline__ W wneg(const W& a, int l) {
+  W r;
+#pragma unroll
+  for (int k = 0; k < R; k++) r.v[k] = -a.v[k];
+  return wcarry<2>(r, l);
+}
+
+__device__ __forceinline__ W wsel(bool c, const W& a, const W& b) {
+  W r;
+#pragma unroll
+  for (int k = 0; k < R; k++) r.v[k] = c ? a.v[k] : b.v[k];
+  return r;
+}
+
+// Limb v of a row of 22 ints with the given stride (0 beyond limb 21).
+__device__ __forceinline__ W wload(const int* __restrict__ row, long long stride, int l) {
+  W x;
+#pragma unroll
+  for (int r = 0; r < R; r++) {
+    const int v = R * l + r;
+    x.v[r] = v < NL ? row[v * stride] : 0;
+  }
+  return x;
+}
+
+// field.mul across the group. Virtual lane v < 22 sums column v (terms
+// i = 0..v) and column 22 + v (terms i = v + 1..21): 22 multiply-adds a
+// virtual lane, every column once. The multiplier a comes as broadcast
+// 16-byte loads; term i of virtual lane v takes b[(v - i) mod 22] from the
+// doubled copy of b at index v - i + 22, one 4-byte load a term for a lane's
+// R neighbouring columns (a sliding window: at R = 2 one load serves two
+// virtual lanes). Then the two column passes, the x19 fold of columns
+// 22..43 and the 23104 terms of columns 44, 45, and three carry steps, each
+// a lane-parallel step with its carries moved by shuffles, as
+// reduce_columns does them. int32 column sums are exact in any order under
+// the reduced invariant, so the limbs equal mul22's.
+__device__ __forceinline__ W wmul(const W& a, const W& b, const GroupScratch& s,
+                                     int l) {
+  __syncwarp();  // the group's previous product has finished reading s
+#pragma unroll
+  for (int r = 0; r < R; r++) {
+    const int v = R * l + r;
+    if (v < NL) {
+      s.a[v] = a.v[r];
+      s.b[v] = b.v[r];
+      s.b[v + NL] = b.v[r];
+    }
+  }
+  __syncwarp();
+  int av[24];
+#pragma unroll
+  for (int g = 0; g < 6; g++) {
+    const int4 q = reinterpret_cast<const int4*>(s.a)[g];
+    av[4 * g] = q.x;
+    av[4 * g + 1] = q.y;
+    av[4 * g + 2] = q.z;
+    av[4 * g + 3] = q.w;
+  }
+  int lo[R], hi[R];  // column v, column 22 + v
+#pragma unroll
+  for (int r = 0; r < R; r++) lo[r] = hi[r] = 0;
+  if (R * l < NL) {
+    const int* e = s.b + R * l + NL;  // b[(R l - i) mod 22] at e[-i]
+    int w[R];
+#pragma unroll
+    for (int r = 0; r < R; r++) w[r] = e[r];
+#pragma unroll
+    for (int i = 0; i < NL; i++) {
+      if (i > 0) {
+#pragma unroll
+        for (int r = R - 1; r > 0; r--) w[r] = w[r - 1];
+        w[0] = e[-i];
+      }
+#pragma unroll
+      for (int r = 0; r < R; r++) {
+        const int p = av[i] * w[r];
+        if (i <= R * l + r) lo[r] += p; else hi[r] += p;
+      }
+    }
+  }
+#pragma unroll
+  for (int pass = 0; pass < 2; pass++) {  // c = (c & MASK) + shift_up(c >> 12)
+    int rl[R], rh[R], ul[R], uh[R];
+#pragma unroll
+    for (int r = 0; r < R; r++) {
+      rl[r] = lo[r] >> LIMB_BITS;
+      rh[r] = hi[r] >> LIMB_BITS;
+    }
+    vrot_up(rl, ul, l);  // column 22 (hi at v = 0) takes column 21's carry
+    vrot_up(rh, uh, l);
+#pragma unroll
+    for (int r = 0; r < R; r++) {
+      lo[r] = (lo[r] & LIMB_MASK) + ul[r];
+      hi[r] = (hi[r] & LIMB_MASK) + uh[r];
+    }
+    if (l == 0) {  // column 0 takes no carry; column 22 takes column 21's
+      lo[0] -= ul[0];
+      hi[0] += ul[0] - uh[0];
+    }
+  }
+  W x;
+  int up[R], su[R];
+#pragma unroll
+  for (int r = 0; r < R; r++) {
+    const int t = hi[r] * 19;  // cols 22..43: weight 19 * 2^(12v + 9)
+    x.v[r] = lo[r] + ((t & 0x7) << 9);
+    up[r] = t >> 3;
+  }
+  vshift_up(up, su, l);
+  const int t2 = vget<NL - 1>(up) * 19;  // limb 22 (weight 2^264 == 19 * 2^9)
+  const int c44 = vget<NL>(hi), c45 = vget<NL + 1>(hi);
+#pragma unroll
+  for (int r = 0; r < R; r++) {
+    const int v = R * l + r;
+    x.v[r] += su[r];
+    if (v == 0) x.v[r] += (t2 & 0x7) << 9;
+    if (v == 1) x.v[r] += (t2 >> 3) + c44 * 23104;  // 2^528 == 361 * 2^18
+    if (v == 2) x.v[r] += c45 * 23104;              // 2^540 == 361 * 2^30
+  }
+  return wcarry<3>(x, l);
+}
+
+template <int N>
+__device__ __forceinline__ W wnsq(W x, const GroupScratch& s, int l) {
+#pragma unroll 1
+  for (int i = 0; i < N; i++) x = wmul(x, x, s, l);
+  return x;
+}
+
+// z^(2^252 - 3): pow22523's chain, the same 262 products in the same order.
+__device__ __forceinline__ W wpow22523(const W& z, const GroupScratch& s, int l) {
+  W t0 = wmul(z, z, s, l);                              // 2
+  W t1 = wmul(z, wnsq<2>(t0, s, l), s, l);              // 9
+  t0 = wmul(t0, t1, s, l);                                 // 11
+  t0 = wmul(t1, wmul(t0, t0, s, l), s, l);                 // 31
+  t0 = wmul(wnsq<5>(t0, s, l), t0, s, l);                  // 2^10 - 1
+  t1 = wmul(wnsq<10>(t0, s, l), t0, s, l);                 // 2^20 - 1
+  W t2 = wmul(wnsq<20>(t1, s, l), t1, s, l);            // 2^40 - 1
+  t1 = wmul(wnsq<10>(t2, s, l), t0, s, l);                 // 2^50 - 1
+  t2 = wmul(wnsq<50>(t1, s, l), t1, s, l);                 // 2^100 - 1
+  W t3 = wmul(wnsq<100>(t2, s, l), t2, s, l);           // 2^200 - 1
+  t1 = wmul(wnsq<50>(t3, s, l), t1, s, l);                 // 2^250 - 1
+  return wmul(wnsq<2>(t1, s, l), z, s, l);                 // 2^252 - 3
+}
+
+// field.canonical of a group's element, in every lane of the group: the
+// limbs go through the scratch, and each lane runs canon22's sequential
+// passes on its own copy (the same instructions as one lane alone, and no
+// broadcast of the result).
+__device__ __forceinline__ fe wcanon(const W& x, const GroupScratch& s, int l) {
+  __syncwarp();  // the previous canonical form has read s.c
+#pragma unroll
+  for (int r = 0; r < R; r++) {
+    const int v = R * l + r;
+    if (v < NL) s.c[v] = x.v[r];
+  }
+  __syncwarp();
+  fe f;
+#pragma unroll
+  for (int g = 0; g < 6; g++) {
+    const int4 q = reinterpret_cast<const int4*>(s.c)[g];
+    const int w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int i = 0; i < 4; i++)
+      if (4 * g + i < NL) f.v[4 * g + i] = w[i];
+  }
+  return canon22(f);
+}
+
+__device__ __forceinline__ bool wis_zero(const W& x, const GroupScratch& s, int l) {
+  const fe c = wcanon(x, s, l);
+  bool z = true;
+#pragma unroll
+  for (int i = 0; i < NL; i++) z = z && (c.v[i] == 0);
+  return z;
+}
+
+// D, SQRT_M1 and 2d as rows that lane v reads limb v of.
+__device__ const int kFinishConst[3][NL] = {D_LIMBS, SQRT_M1_LIMBS, D2_LIMBS};
+
+#define COOP_THREADS 128  // lanes of a block: 8 groups
+// Blocks an SM must hold: 4,096 signatures are ~31 groups an SM, 496
+// lanes, 4 blocks (128 registers a lane).
+#define COOP_MIN_BLOCKS 4
+
+// Replaces pallas_group._finish_kernel: R decompression (the square-root
+// chain), rhs = R + [k]A and the projective equality [s]B == rhs, for
+// signature j by the G lanes of group j. y: [n, 22]; sign: [n]; acc: [n,
+// 176] (the tree's [n, 2, 4, 22]: [s]B's XYZT, then [k]A's); out[j] = 1 iff
+// R is valid and [s]B == R + [k]A. The same decision tree as
+// _finish_kernel, with both arms of every choice computed and selected.
+__global__ void __launch_bounds__(COOP_THREADS, COOP_MIN_BLOCKS)
+finish_kernel(const int* __restrict__ y_in, const int* __restrict__ sign_in,
+              const int* __restrict__ acc, int* __restrict__ out, long long n) {
+  __shared__ __align__(16) int sa[COOP_THREADS / G][24];
+  __shared__ int sb[COOP_THREADS / G][BB_STRIDE];
+  __shared__ __align__(16) int sc[COOP_THREADS / G][24];
+  const int l = threadIdx.x % G, grp = threadIdx.x / G;
+  const long long j = (long long)blockIdx.x * (COOP_THREADS / G) + grp;
+  const long long jc = j < n ? j : n - 1;  // a group past n repeats the last signature
+  const GroupScratch s{sa[grp], sb[grp], sc[grp]};
+
+  const W y = wload(y_in + jc * NL, 1, l);
+  const W d = wload(kFinishConst[0], 1, l);
+  const W sqrt_m1 = wload(kFinishConst[1], 1, l);
+  const W d2 = wload(kFinishConst[2], 1, l);
+  const int sign = sign_in[jc];
+  W one;
+#pragma unroll
+  for (int r = 0; r < R; r++) one.v[r] = (R * l + r) == 0;
+
+  const W y2 = wmul(y, y, s, l);
+  const W u = wsub(y2, one, l);
+  const W v = wadd(wmul(y2, d, s, l), one, l);
+  const W v3 = wmul(wmul(v, v, s, l), v, s, l);
+  const W v7 = wmul(wmul(v3, v3, s, l), v, s, l);
+  const W cand = wmul(wmul(u, v3, s, l), wpow22523(wmul(u, v7, s, l), s, l), s, l);
+  const W vxx = wmul(v, wmul(cand, cand, s, l), s, l);
+  const bool root1 = wis_zero(wsub(vxx, u, l), s, l);
+  const bool root2 = wis_zero(wsub(vxx, wneg(u, l), l), s, l);
+  W x = wsel(root1, cand, wmul(cand, sqrt_m1, s, l));
+  bool valid = root1 || root2;
+  const fe xc = wcanon(x, s, l);  // is_zero and parity from one canonical form
+  bool x_zero = true;
+#pragma unroll
+  for (int i = 0; i < NL; i++) x_zero = x_zero && (xc.v[i] == 0);
+  valid = valid && !(x_zero && sign == 1);
+  x = wsel((xc.v[0] & 1) != sign, wneg(x, l), x);
+
+  const long long row = jc * 2 * 4 * NL;
+  const W kx = wload(acc + row + 4 * NL, 1, l);
+  const W ky = wload(acc + row + 5 * NL, 1, l);
+  const W kz = wload(acc + row + 6 * NL, 1, l);
+  const W kt = wload(acc + row + 7 * NL, 1, l);
+  // R + [k]A: to_cached and padd_core (add-2008-hwcd-3), R = (x, y, 1, xy)
+  const W a = wmul(wsub(y, x, l), wsub(ky, kx, l), s, l);
+  const W b = wmul(wadd(y, x, l), wadd(ky, kx, l), s, l);
+  const W cc = wmul(wmul(x, y, s, l), wmul(kt, d2, s, l), s, l);
+  const W dd = wmul(one, wadd(kz, kz, l), s, l);
+  const W e = wsub(b, a, l), f = wsub(dd, cc, l), g = wadd(dd, cc, l), h = wadd(b, a, l);
+  const W rx = wmul(e, f, s, l), ry = wmul(g, h, s, l), rz = wmul(f, g, s, l);
+
+  const W lx = wload(acc + row, 1, l);
+  const W ly = wload(acc + row + NL, 1, l);
+  const W lz = wload(acc + row + 2 * NL, 1, l);
+  const bool ex = wis_zero(wsub(wmul(lx, rz, s, l), wmul(rx, lz, s, l), l), s, l);
+  const bool ey = wis_zero(wsub(wmul(ly, rz, s, l), wmul(ry, lz, s, l), l), s, l);
+  if (l == 0 && j < n) out[j] = (ex && ey && valid) ? 1 : 0;
+}
+
+// Replaces pallas_group._pow22523_kernel: z^(2^252 - 3) for z [22, n]
+// limb-major, lane j by the G lanes of group j, on wpow22523 (the chain
+// the finish kernel runs).
+__global__ void __launch_bounds__(COOP_THREADS, COOP_MIN_BLOCKS)
 pow22523_kernel(const int* __restrict__ z, int* __restrict__ out, long long n) {
-  long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  store_fe(out, n, 0, lane, pow22523(load_fe(z, n, 0, lane)));
+  __shared__ __align__(16) int sa[COOP_THREADS / G][24];
+  __shared__ int sb[COOP_THREADS / G][BB_STRIDE];
+  const int l = threadIdx.x % G, grp = threadIdx.x / G;
+  const long long j = (long long)blockIdx.x * (COOP_THREADS / G) + grp;
+  const long long jc = j < n ? j : n - 1;
+  const GroupScratch s{sa[grp], sb[grp], nullptr};
+  const W x = wpow22523(wload(z + jc, n, l), s, l);
+  if (j < n) {
+#pragma unroll
+    for (int r = 0; r < R; r++) {
+      const int v = R * l + r;
+      if (v < NL) out[v * n + j] = x.v[r];
+    }
+  }
 }
 
 // Replaces pallas_field._mul_kernel: a * b, a and b [22, n].
@@ -500,14 +764,15 @@ extern "C" int dr_tree_sum_xyzt(const int* in, int* out, long long groups, int m
 extern "C" int dr_finish_check(const int* y, const int* sign, const int* acc, int* out,
                                long long n, void* stream) {
   if (n > 0)
-    finish_kernel<<<blocks_for(n, 32), 32, 0, (cudaStream_t)stream>>>(y, sign, acc,
-                                                                      out, n);
+    finish_kernel<<<blocks_for(n, COOP_THREADS / G), COOP_THREADS, 0, (cudaStream_t)stream>>>(
+        y, sign, acc, out, n);
   return (int)cudaGetLastError();
 }
 
 extern "C" int dr_pow22523(const int* z, int* out, long long n, void* stream) {
   if (n > 0)
-    pow22523_kernel<<<blocks_for(n, 32), 32, 0, (cudaStream_t)stream>>>(z, out, n);
+    pow22523_kernel<<<blocks_for(n, COOP_THREADS / G), COOP_THREADS, 0, (cudaStream_t)stream>>>(
+        z, out, n);
   return (int)cudaGetLastError();
 }
 

@@ -2,12 +2,13 @@
 
 Replaces ``dag_rider_tpu/ops/pallas_field.py::_mul_kernel``: one field
 multiply per lane, step for step as :func:`field.mul`. It is the unit
-kernel of ``mul22``, the device function every group kernel in
-``csrc/ed25519_group.cu`` is built from; nothing on the verify path calls
-it. Bound by integer multiply-adds (484 per product plus ~600 carry and
-fold operations); the design holds the 22 limbs of both operands and the
-46 columns in registers, so device memory sees one read of each operand
-and one write of the result.
+kernel of ``mul22``, the device function the addition and tree kernels of
+``csrc/ed25519_group.cu`` are built from (the finish and pow22523 kernels
+split each product over a group of lanes instead); nothing on the verify
+path calls it. Bound by integer multiply-adds (484 per product plus ~600
+carry and fold operations); the design holds the 22 limbs of both operands
+and the 46 columns in registers, so device memory sees one read of each
+operand and one write of the result.
 """
 
 from __future__ import annotations

@@ -6,11 +6,13 @@ Replaces ``dag_rider_tpu/ops/pallas_group.py``: ``_padd_xx_kernel``
 ``_pow22523_kernel`` (:func:`pow22523`). The kernels are CUDA C++ for
 sm_90a in ``csrc/ed25519_group.cu``. They are bound by integer
 multiply-adds (a point addition is 9 schoolbook 22x22 products; the finish
-tail ~290). The per-lane kernels take one thread per lane over limb-major
-[rows, N] int32 operands and keep every limb in registers, so device
-memory sees one read of each operand and one write of the result. The
-tree kernel sums each group's 64 entries in shared memory, four threads
-per addition.
+tail ~290). ``padd_xx`` takes one thread per lane over limb-major [rows, N]
+int32 operands and keeps every limb in registers, so device memory sees
+one read of each operand and one write of the result. The tree kernel sums
+each group's 64 entries in shared memory, four threads per addition. The
+finish tail and the square-root chain give each signature (each lane of
+``pow22523``) a half-warp of 16 lanes: lane l holds limbs 2l and 2l + 1,
+and every product, carry and fold is split across the half-warp.
 
 Each wrapper takes its plain torch version for a CPU tensor and launches
 its kernel for a CUDA tensor; there is no other path. ``LAUNCHES`` counts
@@ -181,12 +183,12 @@ def finish_check(
             raise TypeError(f"{name}: expected int32, got {t.dtype}")
     if r_y.device.type == "cpu":
         return finish_check_plain(r_y, r_sign, acc)
-    y_t = r_y.t().contiguous()  # [22, B]
-    sign_t = r_sign.contiguous()  # [B]
-    acc_t = acc.reshape(b, 2 * ROWS).t().contiguous()  # [176, B]
+    # the operands as the tree and unpack give them: contiguous rows, no
+    # transposed copy
+    r_y, r_sign, acc = r_y.contiguous(), r_sign.contiguous(), acc.contiguous()
     out = torch.empty(b, dtype=torch.int32, device=r_y.device)
-    launch("dr_finish_check", r_y.device, y_t.data_ptr(), sign_t.data_ptr(),
-           acc_t.data_ptr(), out.data_ptr(), b)
+    launch("dr_finish_check", r_y.device, r_y.data_ptr(), r_sign.data_ptr(),
+           acc.data_ptr(), out.data_ptr(), b)
     LAUNCHES["finish_check"] += 1
     return out.bool()
 
@@ -205,7 +207,7 @@ def pow22523(z: torch.Tensor) -> torch.Tensor:
     """z^(2^252 - 3) for limb-major int32 [22, N] -> [22, N].
 
     The verify path runs this chain inside the finish kernel; this entry
-    is the chain's unit kernel."""
+    is the chain's unit kernel, on the same cooperative device code."""
     check_operand(z, L, "z")
     if z.device.type == "cpu":
         return pow22523_plain(z)

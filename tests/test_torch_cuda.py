@@ -196,3 +196,34 @@ def test_tree_sum_kernel_on_corrupted_signature_entries(dev):
     mask = (CG.finish_check(x.r_y, x.r_sign, acc) & x.a_valid & x.prevalid).tolist()
     assert mask == CPUVerifier(reg).verify_batch(batch)
     assert not any(mask[i] for i in bad)
+
+
+# --- the cooperative finish tail and square-root chain ---------------------------
+
+
+@pytest.mark.parametrize("n", [1, 33, B, B + 1])
+def test_finish_kernel_on_edge_rows_equals_plain(dev, n):
+    """The edge rows of torch_edge_rows (valid, wrong [s]B, non-square y,
+    x = 0 with sign 1, y >= p, 8-torsion [k]A, the identity) tiled to n
+    signatures, through one launch."""
+    from torch_edge_rows import edge_rows, tiled
+
+    _, r_y, r_sign, acc = edge_rows()
+    r_y, r_sign, acc = (tiled(t, n).to(dev) for t in (r_y, r_sign, acc))
+    got = CG.finish_check(r_y, r_sign, acc)
+    torch.cuda.synchronize()
+    assert CG.LAUNCHES["finish_check"] == 1
+    want = CG.finish_check_plain(r_y, r_sign, acc)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [1, B, 65537])
+def test_pow22523_kernel_on_edge_limbs_equals_plain(dev, n):
+    from torch_edge_rows import edge_limbs, tiled
+
+    z = tiled(edge_limbs(), n).t().contiguous().to(dev)  # [22, n]
+    got = CG.pow22523(z)
+    torch.cuda.synchronize()
+    assert CG.LAUNCHES["pow22523"] == 1
+    want = CG.pow22523_plain(z)
+    assert torch.equal(got, want)
