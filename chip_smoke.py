@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths once on one NVIDIA card.
 
-Two paths, each through the hand-written CUDA kernels. The main path is
+Two paths, each through the hand-written CUDA kernels, and then the
+consensus loop that runs them both. The main path is
 round signature verification: a committee of n = 256 validators, 16 DAG
 rounds of 256 signed vertices (171 strong edges each), verified by
 ``CUDAVerifier.verify_rounds`` as one merged 4,096-signature dispatch.
@@ -47,8 +48,25 @@ signatures). The script:
    ``padd381_xx`` launches and one ``horner381``; the MSM's wall time and
    its device split into tables, gather, tree and ``horner381``, launched
    from the host and replayed as a CUDA graph (the card's time alone);
-6. prints ``{"kernels": [...]}``, the card line again, and as the last
-   line ``{"ok": true, "device": {...}}``.
+6. consensus phase: the port's ``Simulation`` runs DAG-Rider at n = 256
+   (threshold-BLS coin, ``propose_empty``, ``gc_depth`` 24, two blocks a
+   process) with one shared ``CUDAVerifier`` (coalesced, pipelined) and
+   threshold coins whose MSM runs on the card and which share one
+   oracle's books (``shared_coin_factory``), ``run(max_messages=256 *
+   255)`` until every view decided ``CONS_WAVES`` waves, with the counters
+   set to 0 just before and read just after: ``tree_sum_xyzt`` and
+   ``finish_check`` once per pipeline dispatch, ``padd381_xx`` and
+   ``horner381`` exactly as the coin's MSMs require, nothing contained;
+   then the same construction with the host oracles (``CPUVerifier``,
+   ``msm="host"``) and the same ``run`` calls, whose logs, leaders and
+   decided waves must be byte-identical; prints rounds, waves, deliveries,
+   messages, signatures applied and dispatched, sigs/s, the wave-commit
+   and wave-interval p50, the seam and MSM walls and each run's host
+   split, and holds the comb kernels against their plain versions at the
+   phase's dispatch width;
+7. prints ``{"kernels": [...]}`` (with each kernel's ``consensus_launches``),
+   the card line again, and as the last line ``{"ok": true, "device":
+   {...}}``.
 
 Any failure exits non-zero before the last line. Run it from the root of
 the repository: ``python3 chip_smoke.py`` (one card, no arguments).
@@ -78,6 +96,10 @@ BAD_SHARE = 17  # index of the corrupted share, among the first f + 1
 WIDE_LANES = 65536  # padd381_xx's widest check, beyond the path's widths
 FIELD_MUL_WIDE = 262144  # field_mul's graph time at a width that fills the card
 MSM_REPEATS = 5
+
+CONS_N = 256  # the consensus phase's committee (BASELINE.json config #4)
+CONS_WAVES = 3  # every view decides at least this many waves
+CONS_MAX_RUNS = 40  # cap on Simulation.run calls before the phase fails
 
 # Published H100 SXM peak memory rate (NVIDIA data sheet), used for the
 # byte side of each kernel's bound.
@@ -435,12 +457,209 @@ def main() -> int:
 
     report.extend(bls_phases(dev, imad_per_s))
 
+    launches = consensus_phase()
+    for row in report:
+        row["consensus_launches"] = launches.get(row["name"], 0)
+
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def shared_coin_factory(coin_cls, keys, n: int, **coin_kw):
+    """``(factory, oracle)``: n processes' threshold coins over one oracle
+    coin's books (shares, group signatures, attempts). The (f + 1)-of-n
+    combine and its pairing check are a pure function of the observed
+    shares, the same at every process, so the cluster evaluates each wave's
+    coin once instead of n times; every process still signs its own share.
+    The books are never pruned: a lagging process still reads them."""
+    oracle = coin_cls(keys, 0, n, **coin_kw)
+
+    def make(i: int):
+        coin = coin_cls(keys, i, n, **coin_kw)
+        coin._shares, coin._sigma, coin._tried_at = (
+            oracle._shares, oracle._sigma, oracle._tried_at)
+        coin.prune_below = lambda wave: None
+        return coin
+
+    return make, oracle
+
+
+def consensus_phase() -> dict:
+    """DAG-Rider at n = 256 through the port's ``Simulation``, with the
+    shared ``CUDAVerifier`` (coalesced, pipelined) and card-MSM threshold
+    coins in the loop; then the same construction with the host oracles
+    (``CPUVerifier``, ``msm="host"``) and the same sequence of ``run``
+    calls. Fails unless every view decided ``CONS_WAVES`` waves, the logs
+    and leaders are byte-identical, the launches are exactly those of the
+    dispatches and MSMs that ran, and nothing was contained. Returns the
+    card run's launches per kernel."""
+    import torch
+
+    from dag_rider_tpu_torch import Config
+    from dag_rider_tpu_torch.consensus.coin import ThresholdCoin
+    from dag_rider_tpu_torch.consensus.simulator import Simulation
+    from dag_rider_tpu_torch.crypto import threshold as th
+    from dag_rider_tpu_torch.ops import bls_msm, comb, cuda_field, cuda_group as CG
+    from dag_rider_tpu_torch.ops import cuda_group381 as G
+    from dag_rider_tpu_torch.verifier.base import KeyRegistry, VertexSigner
+    from dag_rider_tpu_torch.verifier.cpu import CPUVerifier
+    from dag_rider_tpu_torch.verifier.cuda import CUDAVerifier, unpack
+
+    n = CONS_N
+    cfg = Config(n=n, coin="threshold_bls", propose_empty=True, gc_depth=24)
+    t0 = t_phase = time.perf_counter()
+    keys = th.ThresholdKeys.generate(n, cfg.f + 1)
+    reg, seeds = KeyRegistry.generate(n)
+    signers = [VertexSigner(s) for s in seeds]
+    card_ver = CUDAVerifier(reg)
+    card_ver.comb_tables()
+    torch.cuda.synchronize()
+    print(f"consensus set-up (n {n}, threshold {cfg.f + 1}): keys and device tables "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    msm_sizes, msm_walls = [], []
+
+    def card_msm(scalars, points):
+        msm_sizes.append(len(points))
+        t = time.perf_counter()
+        out = bls_msm.msm(scalars, points)
+        msm_walls.append(time.perf_counter() - t)
+        return out
+
+    def timed(fn, spent, key):
+        def call(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                spent[key] += time.perf_counter() - t
+        return call
+
+    def drive(verifier, msm, calls=None):
+        """Build the cluster, run it, and split its host time: vertex
+        signing, coin share signing, the coin's combine with its pairing
+        check, the verify seam, and the rest (the pump itself)."""
+        spent = dict.fromkeys(("vertex signing", "coin share signing",
+                               "coin combine + pairing check"), 0.0)
+        make, oracle = shared_coin_factory(ThresholdCoin, keys, n, msm=msm)
+
+        def coin(i):
+            c = make(i)
+            c.my_share = timed(c.my_share, spent, "coin share signing")
+            c._try_aggregate = timed(c._try_aggregate, spent, "coin combine + pairing check")
+            return c
+
+        class Signer:
+            def __init__(self, inner):
+                self.sign_vertex = timed(inner.sign_vertex, spent, "vertex signing")
+
+        wrapped = [Signer(s) for s in signers]
+        sim = Simulation(cfg, coin_factory=coin, verifier_factory=lambda i: verifier,
+                         signer_factory=lambda i: wrapped[i])
+        monitor = sim.attach_invariant_monitor()
+        sim.submit_blocks(per_process=2)
+        msgs, done = 0, 0
+        t = time.perf_counter()
+        while (done < calls if calls is not None else
+               min(p.decided_wave for p in sim.processes) < CONS_WAVES and done < CONS_MAX_RUNS):
+            msgs += sim.run(max_messages=n * (n - 1))
+            done += 1
+        wall = time.perf_counter() - t
+        sim.check_agreement()
+        if monitor.observed == 0:
+            fail("consensus: the invariant monitor observed no delivery")
+        spent["verify seam"] = sum(p.metrics.verify_seconds_total for p in sim.processes)
+        spent["the rest (pump, admission, ordering)"] = wall - sum(spent.values())
+        return sim, oracle, msgs, done, wall, spent
+
+    def split(spent):
+        return ", ".join(f"{k} {v:.2f} s" for k, v in spent.items())
+
+    # -- the card run: counters at 0 just before, read just after --------------
+    torch.cuda.synchronize()
+    CG.reset_launches()
+    G.reset_launches()
+    cuda_field.reset_launches()
+    sim, oracle, msgs, calls, wall, spent = drive(card_ver, card_msm)
+    torch.cuda.synchronize()
+    launches = {**CG.LAUNCHES, **G.LAUNCHES, **cuda_field.LAUNCHES}
+    pipe = sim._verify_pipe
+    waves = min(p.decided_wave for p in sim.processes)
+    if waves < CONS_WAVES:
+        fail(f"consensus: {waves} waves decided in the slowest view after {calls} runs, "
+             f"want {CONS_WAVES}")
+    rs = pipe.resilience_stats()
+    contained = {k: rs[k] for k in ("poisoned_windows", "quarantined", "quarantine_rejected")}
+    if any(contained.values()):
+        fail(f"consensus: the verify pipeline contained faults {contained}")
+    want = {"tree_sum_xyzt": pipe.dispatches, "finish_check": pipe.dispatches,
+            "padd_xx": 0, "pow22523": 0, "field_mul": 0, **msm_launches(msm_sizes)}
+    if pipe.dispatches <= 0 or not msm_sizes or launches != want:
+        fail(f"consensus launches {launches}, want {want} ({pipe.dispatches} dispatches, "
+             f"MSMs of {msm_sizes} points)")
+    sizes = [len(d) for d in sim.deliveries]
+    applied = sum(p.metrics.verify_sigs_total for p in sim.processes)
+    commit = [s for p in sim.processes for s in p.metrics.wave_commit_seconds]
+    interval = [s for p in sim.processes for s in p.metrics.wave_interval_seconds]
+    rounds = [p.round for p in sim.processes]
+    print(f"consensus (card): {calls} runs, rounds {min(rounds)}-{max(rounds)}, waves decided "
+          f"{waves} (min over views), vertices delivered per view {min(sizes)}-{max(sizes)}, "
+          f"{msgs} messages, wall {wall:.2f} s")
+    print(f"  signatures: {applied} applied, {pipe.sigs_dispatched} dispatched in "
+          f"{pipe.dispatches} dispatches; {applied / wall:.0f} applied sigs/s of the wall, "
+          f"{pipe.sigs_dispatched / pipe.seam_s:.0f} dispatched sigs/s of the verify seam; "
+          f"verify seam {pipe.seam_s:.3f} s, of it pipeline wait {pipe.wait_s:.3f} s")
+    print(f"  wave commit p50 {statistics.median(commit) * 1e3:.3f} ms ({len(commit)} samples), "
+          f"wave interval p50 {statistics.median(interval) * 1e3:.1f} ms "
+          f"({len(interval)} samples)")
+    print(f"  coin: {len(msm_sizes)} MSMs of {sorted(set(msm_sizes))} points, wall "
+          f"{sum(msm_walls) * 1e3:.1f} ms (median {statistics.median(msm_walls) * 1e3:.2f} ms); "
+          f"leaders {[th.leader_from_sigma(s, n) for _, s in sorted(oracle._sigma.items())]}")
+    print(f"  launches {launches}; contained {contained}")
+    print(f"  host split: {split(spent)}; the card's work lies inside the verify seam and "
+          f"the coin MSMs ({pipe.seam_s + sum(msm_walls):.3f} s of the {wall:.2f} s wall)")
+
+    # -- the host-oracle run, the same sequence of run calls --------------------
+    host, host_oracle, host_msgs, _, host_wall, host_spent = drive(CPUVerifier(reg), "host",
+                                                                    calls)
+    logs = [[(v.id.round, v.id.source, v.digest()) for v in d] for d in sim.deliveries]
+    host_logs = [[(v.id.round, v.id.source, v.digest()) for v in d] for d in host.deliveries]
+    if not any(logs):
+        fail("consensus: nothing was delivered")
+    if logs != host_logs:
+        bad = [i for i, (a, b) in enumerate(zip(logs, host_logs)) if a != b]
+        fail(f"consensus: the card run's logs differ from the host oracle's at views {bad[:10]}")
+    if oracle._sigma != host_oracle._sigma:
+        fail("consensus: the card coins' group signatures (leaders) differ from the host coins'")
+    decided = [p.decided_wave for p in sim.processes]
+    if decided != [p.decided_wave for p in host.processes] or msgs != host_msgs:
+        fail("consensus: decided waves or message counts differ from the host oracle run")
+    print(f"consensus (host oracle): logs of all {n} views, {len(oracle._sigma)} leaders and "
+          f"decided waves byte-identical; wall {host_wall:.2f} s; host split: "
+          f"{split(host_spent)}")
+
+    # the path's kernels against their plain versions at its dispatch width:
+    # one round of n signed vertices from the run
+    rnd = [v for v in sim.deliveries[0] if v.signature is not None][-n:]
+    u8, i32 = card_ver.prepare_batch(rnd)
+    x = unpack(torch.from_numpy(u8).cuda(), torch.from_numpy(i32).cuda())
+    tables, b_tab = card_ver.comb_tables()
+    entries = comb.gather_entries(x.s_nibbles, x.k_nibbles, x.key_idx, tables, b_tab)
+    acc = CG.tree_sum_xyzt(entries)
+    ok_tree = torch.equal(acc, comb.tree_sum_packed(entries))
+    ok_finish = torch.equal(CG.finish_check(x.r_y, x.r_sign, acc),
+                            CG.finish_check_plain(x.r_y, x.r_sign, acc))
+    print(f"  kernels at the consensus dispatch width ({u8.shape[0]} rows, {len(rnd)} real): "
+          f"tree_sum_xyzt equal {ok_tree}, finish_check equal {ok_finish}")
+    if not (ok_tree and ok_finish):
+        fail("consensus: a kernel disagrees with its plain version at the consensus width")
+    print(f"consensus phase wall (set-up, both runs, checks): "
+          f"{time.perf_counter() - t_phase:.2f} s")
+    return launches
 
 
 def msm_launches(sizes) -> dict:

@@ -96,8 +96,9 @@ class RoundRobinCoin(CommonCoin):
 def _resolve_msm(msm, device):
     """The ``msm=`` backend handed to ``crypto.threshold``: None for the
     host group law, else a callable. ``device`` is read only by
-    "device"."""
-    if msm is None or msm == "host":
+    "device". Any other value, None included, raises ValueError, as
+    ``CertVerifier`` does."""
+    if msm == "host":
         return None
     if msm == "device":
         from dag_rider_tpu_torch.ops import bls_msm
@@ -122,9 +123,9 @@ class ThresholdCoin(CommonCoin):
     ``msm``: "device" (the default: ``ops.bls_msm.msm`` on ``device``,
     which is ``cuda`` unless the caller passes ``"cpu"`` for the plain
     torch path; raises at construction when there is no card), "host"
-    (the host group law, the oracle; None, its spelling before the device
-    default, still selects it), or a callable ``(scalars, points) ->
-    point`` used as it is.
+    (the host group law, the oracle), or a callable ``(scalars, points) ->
+    point`` used as it is. Any other value, None included, raises
+    ValueError: ``CertVerifier`` takes the same spellings.
     """
 
     def __init__(self, keys, index: int, n: int, *, msm="device", device=None):

@@ -1,0 +1,478 @@
+"""Wire / storage codec for vertices and broadcast messages.
+
+The port's copy of ``dag_rider_tpu/core/codec.py``.
+
+The reference has no serialization at all — its Transport moves Go structs
+through channels (``process/transport.go:11-18``) and nothing can cross a
+process or persistence boundary (SURVEY.md §5 "checkpoint/resume: absent").
+This codec is the single canonical byte format used by
+
+- the networked Transport (gRPC/TCP), and
+- the checkpoint format (utils/checkpoint.py),
+
+so a checkpointed DAG and an on-the-wire vertex are the same bytes.
+
+Layout (little-endian, length-prefixed): the signed portion reuses
+``Vertex.signing_bytes()`` field order exactly, followed by the signature.
+"""
+
+from __future__ import annotations
+
+import struct
+from typing import List, Optional, Sequence, Tuple
+
+from dag_rider_tpu_torch.core.types import (
+    Block,
+    BroadcastMessage,
+    EpochOp,
+    LaneRef,
+    RoundCertificate,
+    SpanCertificate,
+    Vertex,
+    VertexID,
+)
+
+_MAGIC = b"DRv1"
+#: v2 vertex: v1 plus a third optional blob (cert_sig). Emitted ONLY when
+#: cert_sig is present, so every cert-off vertex — and every byte already
+#: on disk in a checkpoint — stays exactly the DRv1 encoding.
+_MAGIC_V2 = b"DRv2"
+
+
+def encode_vertex(v: Vertex) -> bytes:
+    v2 = v.cert_sig is not None
+    out = [_MAGIC_V2 if v2 else _MAGIC, v.id.encode(), v.block.encode()]
+    for edges in (v.strong_edges, v.weak_edges):
+        out.append(struct.pack("<I", len(edges)))
+        for e in sorted(edges):
+            out.append(e.encode())
+    blobs = (v.coin_share, v.signature, v.cert_sig) if v2 else (
+        v.coin_share,
+        v.signature,
+    )
+    for blob in blobs:
+        if blob is None:
+            out.append(struct.pack("<i", -1))
+        else:
+            out.append(struct.pack("<i", len(blob)))
+            out.append(blob)
+    return b"".join(out)
+
+
+def decode_vertex(data: bytes, offset: int = 0) -> Tuple[Vertex, int]:
+    magic = data[offset : offset + 4]
+    if magic == _MAGIC:
+        nblobs = 2
+    elif magic == _MAGIC_V2:
+        nblobs = 3
+    else:
+        raise ValueError("bad vertex magic")
+    offset += 4
+    rnd, source = struct.unpack_from("<II", data, offset)
+    offset += 8
+    block, offset = Block.decode(data, offset)
+    edge_sets = []
+    for _ in range(2):
+        (count,) = struct.unpack_from("<I", data, offset)
+        offset += 4
+        edges = []
+        for _ in range(count):
+            er, es = struct.unpack_from("<II", data, offset)
+            offset += 8
+            edges.append(VertexID(er, es))
+        edge_sets.append(tuple(edges))
+    blobs = []
+    for _ in range(nblobs):
+        (ln,) = struct.unpack_from("<i", data, offset)
+        offset += 4
+        if ln < 0:
+            blobs.append(None)
+        else:
+            blobs.append(data[offset : offset + ln])
+            offset += ln
+    v = Vertex(
+        id=VertexID(rnd, source),
+        block=block,
+        strong_edges=edge_sets[0],
+        weak_edges=edge_sets[1],
+        coin_share=blobs[0],
+        signature=blobs[1],
+        cert_sig=blobs[2] if nblobs == 3 else None,
+    )
+    return v, offset
+
+
+def encode_certificate(cert: RoundCertificate) -> bytes:
+    """Certificate layout: round, signer count, signer u32s, the parallel
+    digest blobs (u32 length-prefixed), then the aggregate signature."""
+    out = [
+        struct.pack("<II", cert.round, len(cert.signers)),
+        struct.pack(f"<{len(cert.signers)}I", *cert.signers)
+        if cert.signers
+        else b"",
+    ]
+    for d in cert.digests:
+        out.append(struct.pack("<I", len(d)))
+        out.append(d)
+    out.append(struct.pack("<I", len(cert.agg_sig)))
+    out.append(cert.agg_sig)
+    return b"".join(out)
+
+
+def decode_certificate(
+    data: bytes, offset: int = 0
+) -> Tuple[RoundCertificate, int]:
+    rnd, count = struct.unpack_from("<II", data, offset)
+    offset += 8
+    signers = struct.unpack_from(f"<{count}I", data, offset)
+    offset += 4 * count
+    digests = []
+    for _ in range(count):
+        (ln,) = struct.unpack_from("<I", data, offset)
+        offset += 4
+        digests.append(data[offset : offset + ln])
+        offset += ln
+    (ln,) = struct.unpack_from("<I", data, offset)
+    offset += 4
+    agg = data[offset : offset + ln]
+    offset += ln
+    return (
+        RoundCertificate(
+            round=rnd,
+            signers=tuple(signers),
+            digests=tuple(digests),
+            agg_sig=agg,
+        ),
+        offset,
+    )
+
+
+def encode_span_certificate(span: SpanCertificate) -> bytes:
+    """Span layout: first round, round count, then each round's signer
+    count + signer u32s + parallel digest blobs, then the combined
+    aggregate signature."""
+    out = [struct.pack("<II", span.first_round, len(span.signers))]
+    for signers, digests in zip(span.signers, span.digests):
+        out.append(struct.pack("<I", len(signers)))
+        if signers:
+            out.append(struct.pack(f"<{len(signers)}I", *signers))
+        for d in digests:
+            out.append(struct.pack("<I", len(d)))
+            out.append(d)
+    out.append(struct.pack("<I", len(span.agg_sig)))
+    out.append(span.agg_sig)
+    return b"".join(out)
+
+
+def decode_span_certificate(
+    data: bytes, offset: int = 0
+) -> Tuple[SpanCertificate, int]:
+    first, k = struct.unpack_from("<II", data, offset)
+    offset += 8
+    all_signers = []
+    all_digests = []
+    for _ in range(k):
+        (count,) = struct.unpack_from("<I", data, offset)
+        offset += 4
+        signers = struct.unpack_from(f"<{count}I", data, offset)
+        offset += 4 * count
+        digests = []
+        for _ in range(count):
+            (ln,) = struct.unpack_from("<I", data, offset)
+            offset += 4
+            digests.append(data[offset : offset + ln])
+            offset += ln
+        all_signers.append(tuple(signers))
+        all_digests.append(tuple(digests))
+    (ln,) = struct.unpack_from("<I", data, offset)
+    offset += 4
+    agg = data[offset : offset + ln]
+    offset += ln
+    return (
+        SpanCertificate(
+            first_round=first,
+            signers=tuple(all_signers),
+            digests=tuple(all_digests),
+            agg_sig=agg,
+        ),
+        offset,
+    )
+
+
+_KINDS = (
+    "val", "echo", "ready", "fetch", "sync", "sync_nack", "cert", "cert_span",
+)
+
+
+#: high bit of the kind byte flags a trailing u32 epoch section.
+#: Epoch-0 messages — everything a static-membership deployment
+#: ever sends, and every byte already on the wire or in a WAL — keep
+#: their exact pre-epoch layout, same discipline as DRv2's conditional
+#: cert_sig blob.
+_EPOCH_BIT = 0x80
+
+
+def encode_message(msg: BroadcastMessage) -> bytes:
+    """Message layout: round, sender, kind byte, origin (int32, -1 = none),
+    digest (int32 length prefix, -1 = none), vertex-present flag + vertex.
+    When ``msg.epoch > 0`` the kind byte carries ``_EPOCH_BIT`` and a u32
+    epoch id trails the message."""
+    kind_byte = _KINDS.index(msg.kind)
+    if msg.epoch > 0:
+        kind_byte |= _EPOCH_BIT
+    out = [
+        struct.pack("<IIB", msg.round, msg.sender, kind_byte),
+        struct.pack("<i", -1 if msg.origin is None else msg.origin),
+    ]
+    if msg.digest is None:
+        out.append(struct.pack("<i", -1))
+    else:
+        out.append(struct.pack("<i", len(msg.digest)))
+        out.append(msg.digest)
+    if msg.vertex is None:
+        out.append(b"\x00")
+    else:
+        out.append(b"\x01")
+        out.append(encode_vertex(msg.vertex))
+    # certificate section only for the cert kind: every pre-existing
+    # message kind keeps its exact byte layout
+    if msg.kind == "cert":
+        if msg.cert is None:
+            out.append(b"\x00")
+        else:
+            out.append(b"\x01")
+            out.append(encode_certificate(msg.cert))
+    # likewise the span section exists only for the new cert_span kind
+    if msg.kind == "cert_span":
+        if msg.span is None:
+            out.append(b"\x00")
+        else:
+            out.append(b"\x01")
+            out.append(encode_span_certificate(msg.span))
+    if msg.epoch > 0:
+        out.append(struct.pack("<I", msg.epoch))
+    return b"".join(out)
+
+
+def decode_message(data: bytes, offset: int = 0) -> Tuple[BroadcastMessage, int]:
+    rnd, sender, kind_code = struct.unpack_from("<IIB", data, offset)
+    offset += 9
+    has_epoch = bool(kind_code & _EPOCH_BIT)
+    kind_code &= ~_EPOCH_BIT
+    (origin,) = struct.unpack_from("<i", data, offset)
+    offset += 4
+    (dlen,) = struct.unpack_from("<i", data, offset)
+    offset += 4
+    digest = None
+    if dlen >= 0:
+        digest = data[offset : offset + dlen]
+        offset += dlen
+    has_vertex = data[offset]
+    offset += 1
+    v = None
+    if has_vertex:
+        v, offset = decode_vertex(data, offset)
+    kind = _KINDS[kind_code]
+    cert = None
+    if kind == "cert":
+        has_cert = data[offset]
+        offset += 1
+        if has_cert:
+            cert, offset = decode_certificate(data, offset)
+    span = None
+    if kind == "cert_span":
+        has_span = data[offset]
+        offset += 1
+        if has_span:
+            span, offset = decode_span_certificate(data, offset)
+    epoch = 0
+    if has_epoch:
+        (epoch,) = struct.unpack_from("<I", data, offset)
+        offset += 4
+    return (
+        BroadcastMessage(
+            vertex=v,
+            round=rnd,
+            sender=sender,
+            kind=kind,
+            origin=None if origin < 0 else origin,
+            digest=digest,
+            cert=cert,
+            span=span,
+            epoch=epoch,
+        ),
+        offset,
+    )
+
+
+_BATCH_MAGIC = b"DRb1"
+
+
+def encode_many(msgs: Sequence[BroadcastMessage]) -> bytes:
+    """One contiguous buffer for a whole batch of messages.
+
+    Layout: batch magic, u32 count, then ``count`` concatenated
+    :func:`encode_message` payloads. The point is one header parse and
+    one allocation per *batch* on the hot pump path, not one per vertex
+   ; the per-message layout is unchanged, so a batch of one is
+    the same bytes as ``encode_message`` plus an 8-byte prefix.
+    """
+    out = [_BATCH_MAGIC, struct.pack("<I", len(msgs))]
+    out.extend(encode_message(m) for m in msgs)
+    return b"".join(out)
+
+
+def decode_many(data: bytes, offset: int = 0) -> List[BroadcastMessage]:
+    if data[offset : offset + 4] != _BATCH_MAGIC:
+        raise ValueError("bad batch magic")
+    offset += 4
+    (count,) = struct.unpack_from("<I", data, offset)
+    offset += 4
+    msgs = []
+    for _ in range(count):
+        m, offset = decode_message(data, offset)
+        msgs.append(m)
+    if offset != len(data):
+        raise ValueError(
+            f"trailing bytes after batch: {len(data) - offset}"
+        )
+    return msgs
+
+
+# -- lane-batch references ---------------------------------------
+
+#: a lane ref is the single pseudo-transaction of its carrier Block;
+#: 8 bytes so no honest client payload shorter than the prefix aliases
+LANE_MAGIC = b"DRlane1\x00"
+
+
+def encode_lane_ref(ref: LaneRef) -> bytes:
+    """Encode a :class:`LaneRef` as a carrier pseudo-transaction.
+
+    Layout after the magic: u32 producer, u32 seq, 32-byte sha256
+    digest, u32 tx count, u32 payload bytes, u32 signer count + u32
+    signers (sorted), u32 agg-sig length + bytes (0 for unsigned)."""
+    out = [
+        LANE_MAGIC,
+        struct.pack("<II", ref.producer, ref.seq),
+        ref.digest,
+        struct.pack("<III", ref.count, ref.nbytes, len(ref.signers)),
+    ]
+    for s in ref.signers:
+        out.append(struct.pack("<I", s))
+    out.append(struct.pack("<I", len(ref.agg_sig)))
+    out.append(ref.agg_sig)
+    return b"".join(out)
+
+
+def decode_lane_ref(tx: bytes) -> Optional[LaneRef]:
+    """Parse a carrier pseudo-transaction; None when ``tx`` is an
+    ordinary client transaction (no magic)."""
+    if not tx.startswith(LANE_MAGIC):
+        return None
+    off = len(LANE_MAGIC)
+    producer, seq = struct.unpack_from("<II", tx, off)
+    off += 8
+    digest = tx[off : off + 32]
+    off += 32
+    count, nbytes, nsig = struct.unpack_from("<III", tx, off)
+    off += 12
+    signers = struct.unpack_from(f"<{nsig}I", tx, off) if nsig else ()
+    off += 4 * nsig
+    (siglen,) = struct.unpack_from("<I", tx, off)
+    off += 4
+    agg = tx[off : off + siglen]
+    if off + siglen != len(tx) or len(digest) != 32:
+        raise ValueError("malformed lane ref")
+    return LaneRef(producer, seq, digest, count, nbytes, tuple(signers), agg)
+
+
+def lane_ref_of(block: Block) -> Optional[LaneRef]:
+    """The ref a carrier block holds, or None for a payload block. A
+    carrier is exactly one magic-prefixed pseudo-transaction — producers
+    refuse to lane any payload whose own transactions alias the magic
+    (see ``LaneCoordinator.begin_publish``), so the shape is unambiguous
+    on the delivery path. A MALFORMED magic-prefixed transaction (only a
+    Byzantine producer can craft one — honest publishes round-trip by
+    construction) is treated as a payload: honest delivery surfaces the
+    garbage bytes as-is, exactly as it would an inline garbage block,
+    instead of crashing the resolve path."""
+    if len(block.transactions) != 1:
+        return None
+    try:
+        return decode_lane_ref(block.transactions[0])
+    except (ValueError, struct.error):
+        return None
+
+
+# -- epoch reconfiguration control transactions ------------------
+
+#: an epoch op is the magic-prefixed pseudo-transaction of an ordinary
+#: block; 8 bytes like LANE_MAGIC so no honest payload shorter than the
+#: prefix aliases, and distinct from it so the two control lanes never
+#: collide
+EPOCH_MAGIC = b"DRepoch\x00"
+
+_EPOCH_OPS = ("join", "leave", "rotate")
+
+
+def encode_epoch_op(op: EpochOp) -> bytes:
+    """Encode an :class:`EpochOp` as a control pseudo-transaction.
+
+    Layout after the magic: u8 op kind, u32 target index, u32 nonce,
+    u32 payload length + bytes."""
+    return b"".join(
+        (
+            EPOCH_MAGIC,
+            struct.pack("<BII", _EPOCH_OPS.index(op.kind), op.target,
+                        op.nonce),
+            struct.pack("<I", len(op.payload)),
+            op.payload,
+        )
+    )
+
+
+def decode_epoch_op(tx: bytes) -> Optional[EpochOp]:
+    """Parse a control pseudo-transaction; None when ``tx`` is an
+    ordinary client transaction (no magic); raises on a malformed
+    magic-prefixed body."""
+    if not tx.startswith(EPOCH_MAGIC):
+        return None
+    off = len(EPOCH_MAGIC)
+    kind_code, target, nonce = struct.unpack_from("<BII", tx, off)
+    off += 9
+    (plen,) = struct.unpack_from("<I", tx, off)
+    off += 4
+    payload = tx[off : off + plen]
+    if kind_code >= len(_EPOCH_OPS) or off + plen != len(tx):
+        raise ValueError("malformed epoch op")
+    return EpochOp(_EPOCH_OPS[kind_code], target, nonce, payload)
+
+
+def epoch_op_of(tx: bytes) -> Optional[EpochOp]:
+    """The op a control transaction carries, or None for a client
+    transaction. Same degradation rule as :func:`lane_ref_of`: a
+    MALFORMED magic-prefixed transaction (only a Byzantine or buggy
+    submitter can craft one) is treated as an ordinary payload — the
+    ordered log surfaces the garbage bytes as-is instead of crashing
+    the delivery walk, and every correct process ignores it for epoch
+    scheduling identically."""
+    try:
+        return decode_epoch_op(tx)
+    except (ValueError, struct.error):
+        return None
+
+
+def frame(payload: bytes) -> bytes:
+    """Length-prefixed frame for stream transports."""
+    return struct.pack("<I", len(payload)) + payload
+
+
+def read_frame(buf: bytes, offset: int = 0) -> Optional[Tuple[bytes, int]]:
+    """Returns (payload, new_offset) or None if the buffer is incomplete."""
+    if len(buf) - offset < 4:
+        return None
+    (ln,) = struct.unpack_from("<I", buf, offset)
+    if len(buf) - offset - 4 < ln:
+        return None
+    return buf[offset + 4 : offset + 4 + ln], offset + 4 + ln

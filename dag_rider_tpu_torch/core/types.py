@@ -1,12 +1,21 @@
-"""Vertex / block data model — the parts the verifier reads.
+"""Vertex / block data model.
 
-A copy of ``VertexID``, ``Block`` and ``Vertex`` from
-``dag_rider_tpu/core/types.py``, with ``signing_bytes``/``digest``
-byte-identical to the reference: the port's verifier signs and checks the
-same bytes, and ``RoundCertificate``, the aggregated attestation of a
-round that ``verifier.cert.CertVerifier`` assembles and checks. The rest
-of that module (span certificates, wire messages, lane and epoch records)
-belongs to the consensus host layer, a later slice.
+The port's copy of ``dag_rider_tpu/core/types.py``.
+
+Counterpart of the reference's data model
+(``process/process.go:14-31``): a vertex is identified by ``(round, source)``,
+carries a client block payload, strong edges to round-1 vertices and weak
+edges to vertices in rounds < round-1.
+
+Differences from the reference, by design:
+
+- Sources are 0-based ints in [0, n).
+- Vertices are immutable (frozen dataclasses) and carry an optional Ed25519
+  signature + threshold-coin share — the reference has no authentication at
+  all (SURVEY.md D10) and a stubbed coin (D9).
+- A canonical byte encoding (``signing_bytes``) exists so vertices can be
+  signed/verified and checkpointed; the reference has no serialization
+  (SURVEY.md §5 "checkpoint/resume: absent").
 """
 
 from __future__ import annotations
@@ -33,7 +42,7 @@ class VertexID(NamedTuple):
     n=256 host profile.
 
     Being a NamedTuple, a VertexID hashes and compares equal to the bare
-    tuple ``(round, source)`` — INTENTIONAL (ADVICE r5 #4): hot paths
+    tuple ``(round, source)`` — INTENTIONAL: hot paths
     may probe dicts/sets keyed by VertexID with plain tuples (skipping
     even the NamedTuple constructor) and membership answers must agree.
     Do not "fix" this by overriding __eq__/__hash__; code must not rely
@@ -78,6 +87,53 @@ class Block:
 
 
 @dataclasses.dataclass(frozen=True)
+class LaneRef:
+    """A certified lane-batch reference.
+
+    Stands in for a payload :class:`Block` on the consensus path when
+    dissemination lanes are on: ``digest`` is the sha256 of the encoded
+    payload block, ``signers`` the 2f+1 sources whose availability acks
+    back the batch (sorted), and ``agg_sig`` the compressed G1 sum of
+    their domain-separated BLS ack shares (empty in unsigned
+    deployments — the keyless simulator). ``count``/``nbytes`` restate
+    the payload shape so admission and accounting never need the bytes.
+
+    The ref rides the existing wire unchanged, as the single
+    magic-prefixed pseudo-transaction of a Block (see
+    :func:`dag_rider_tpu_torch.core.codec.encode_lane_ref`) — vertex identity,
+    signing, and the cert path all see an ordinary small block.
+    """
+
+    producer: int
+    seq: int
+    digest: bytes
+    count: int
+    nbytes: int
+    signers: Tuple[int, ...] = ()
+    agg_sig: bytes = b""
+
+
+@dataclasses.dataclass(frozen=True)
+class EpochOp:
+    """One reconfiguration request, ordered through consensus
+    as the magic-prefixed pseudo-transaction of an ordinary block (see
+    :func:`dag_rider_tpu_torch.core.codec.encode_epoch_op`).
+
+    ``kind`` is "join" | "leave" | "rotate"; ``target`` the node index
+    joining or leaving (0 for a pure key rotation); ``nonce`` a
+    submitter-chosen tag so identical requests stay distinguishable in
+    the ordered log; ``payload`` carries opaque operator material (e.g.
+    a joiner's identity seed), folded into the epoch seed derivation so
+    rotated keys commit to it.
+    """
+
+    kind: str
+    target: int = 0
+    nonce: int = 0
+    payload: bytes = b""
+
+
+@dataclasses.dataclass(frozen=True)
 class Vertex:
     """A DAG vertex (reference ``process/process.go:26-31``).
 
@@ -93,6 +149,12 @@ class Vertex:
     weak_edges: Tuple[VertexID, ...] = ()
     signature: Optional[bytes] = None
     coin_share: Optional[bytes] = None
+    #: BLS signature over digest() for the aggregated round-certificate
+    #: path. Like ``signature``, an attestation OF the content
+    #: — excluded from signing_bytes/digest (both enumerate fields
+    #: explicitly), so attaching it never perturbs the vertex identity
+    #: the per-vertex oracle path verifies.
+    cert_sig: Optional[bytes] = None
 
     @property
     def round(self) -> int:
@@ -109,7 +171,7 @@ class Vertex:
         independent of construction order. Memoized: the encoding of an
         immutable vertex is hit once per verify *and* once per digest, and
         re-serializing ~2f+1 edges dominated the verifier's host prep at
-        n=256 (round-2 VERDICT weak #3).
+        n=256.
         """
         cached = self.__dict__.get("_signing_bytes")
         if cached is not None:
@@ -140,6 +202,34 @@ class Vertex:
         object.__setattr__(self, "_digest", d)
         return d
 
+    def edge_arrays(self):
+        """Edges as four int32 numpy arrays
+        ``(strong_rounds, strong_sources, weak_rounds, weak_sources)``.
+
+        Memoized: admission gates and dense-mirror inserts check every
+        edge of every vertex; per-edge attribute access over ~2f+1
+        VertexIDs was the hottest slice of the 64-node host profile, and
+        one fancy-index over these arrays replaces it."""
+        cached = self.__dict__.get("_edge_arrays")
+        if cached is not None:
+            return cached
+        import numpy as np
+
+        # int64: wire rounds/sources are u32, which OVERFLOWS int32 —
+        # a crafted vertex with round >= 2^31 must reach the admission
+        # gate's range checks as a value, not as an OverflowError on the
+        # network path (found by the snapshot corruption fuzz). The gate
+        # bounds everything to [0, n) x [0, vr) before any index use.
+        se, we = self.strong_edges, self.weak_edges
+        arrs = (
+            np.fromiter((e.round for e in se), np.int64, len(se)),
+            np.fromiter((e.source for e in se), np.int64, len(se)),
+            np.fromiter((e.round for e in we), np.int64, len(we)),
+            np.fromiter((e.source for e in we), np.int64, len(we)),
+        )
+        object.__setattr__(self, "_edge_arrays", arrs)
+        return arrs
+
 
 @dataclasses.dataclass(frozen=True)
 class RoundCertificate:
@@ -165,3 +255,74 @@ class RoundCertificate:
         key for sharing one verification verdict across an in-process
         cluster (the registry identity is added by the verifier)."""
         return (self.round, self.signers, self.digests, self.agg_sig)
+
+
+@dataclasses.dataclass(frozen=True)
+class SpanCertificate:
+    """A cert-of-certs covering ``k`` consecutive round certificates
+   .
+
+    ``signers[i]`` / ``digests[i]`` restate what the round
+    ``first_round + i`` certificate claimed, and ``agg_sig`` is the
+    compressed G1 sum of those rounds' certificate aggregates — so ONE
+    combined multi-pairing proves every (digest, pk) pair across the
+    span was signed, and a catch-up consumer pays 1/k of the per-round
+    pairing count. Deliberately slim: no embedded per-round signatures
+    (they would be unverified claims a receiver could only trust by
+    re-doing the per-round work the span exists to avoid).
+
+    Spans are an overlay on the certificate path, never a liveness
+    dependency: round certificates keep flowing per-round, and a
+    receiver that already settled a covered round just ignores the span
+    for that round.
+    """
+
+    first_round: int
+    signers: Tuple[Tuple[int, ...], ...]
+    digests: Tuple[Tuple[bytes, ...], ...]
+    agg_sig: bytes
+
+    @property
+    def last_round(self) -> int:
+        return self.first_round + len(self.signers) - 1
+
+    def signing_key(self) -> tuple:
+        """Hashable identity of the span's combined claim — the memo key
+        for the COMBINED verdict only (a passing span check does not
+        imply each component round certificate is individually valid,
+        so per-round verdicts are never derived from it)."""
+        return ("span", self.first_round, self.signers, self.digests,
+                self.agg_sig)
+
+
+@dataclasses.dataclass(frozen=True)
+class BroadcastMessage:
+    """The unit the Transport carries (reference ``bcastMsg``,
+    ``process/transport.go:11-18``): a vertex plus the round/sender stamps.
+
+    The reference *trusts* these stamps (D10, ``process.go:159-162``); here
+    they are cross-checked against the signed vertex id on receipt.
+
+    ``kind`` extends the wire beyond the reference's single message type:
+    "val" is a vertex payload (the only kind a Process consumes); "echo" /
+    "ready" / "fetch" are the Bracha reliable-broadcast control messages of
+    :mod:`dag_rider_tpu_torch.transport.rbc`, which carry ``origin`` (the source
+    index of the vertex being amplified) and ``digest`` instead of a
+    payload.
+    """
+
+    vertex: Optional[Vertex]
+    round: int
+    sender: int
+    kind: str = "val"
+    origin: Optional[int] = None
+    digest: Optional[bytes] = None
+    #: aggregated round certificate, only for kind == "cert"
+    cert: Optional[RoundCertificate] = None
+    #: cert-of-certs, only for kind == "cert_span"
+    span: Optional[SpanCertificate] = None
+    #: reconfiguration epoch the sender was in. 0 is the
+    #: genesis epoch and the only value static-membership deployments
+    #: ever see; the codec emits the epoch wire section only when > 0,
+    #: so pre-epoch bytes decode unchanged.
+    epoch: int = 0

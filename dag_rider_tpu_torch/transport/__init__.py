@@ -1,0 +1,10 @@
+from dag_rider_tpu_torch.transport.base import Handler, Transport
+from dag_rider_tpu_torch.transport.memory import InMemoryTransport
+from dag_rider_tpu_torch.transport.rbc import RbcTransport
+
+__all__ = [
+    "Handler",
+    "Transport",
+    "InMemoryTransport",
+    "RbcTransport",
+]

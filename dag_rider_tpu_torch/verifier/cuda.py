@@ -16,8 +16,8 @@ the device returns only accept bits.
 Batches pad to power-of-two buckets (padded rows are structurally invalid
 and come out False). :meth:`dispatch_batch` enqueues on the current CUDA
 stream and returns at once; :meth:`resolve_batch` waits on the dispatch's
-event. That pair lets the JAX package's ``VerifierPipeline`` and
-``Simulation`` drive this verifier by duck typing. Vertices are any
+event. That pair lets ``verifier.pipeline.VerifierPipeline`` and
+``consensus.simulator.Simulation`` drive this verifier by duck typing. Vertices are any
 objects with ``.source``, ``.signature`` and ``.signing_bytes()``.
 """
 

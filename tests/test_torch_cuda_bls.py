@@ -107,7 +107,7 @@ def test_coin_and_certificate_on_card_equal_host(dev):
     shares = {i: th.sign_share(keys.share_sks[i], 1) for i in range(7)}
     shares[1] = th.sign_share(keys.share_sks[1], 992)  # a Byzantine share
     sigmas = []
-    for msm in (bls_msm.msm, None):
+    for msm in (bls_msm.msm, "host"):
         coin = ThresholdCoin(keys, 0, 7, msm=msm)
         for src, share in shares.items():
             coin.observe_share(1, src, share)

@@ -1,0 +1,85 @@
+"""The port imports no JAX and nothing of the JAX package.
+
+Every ``.py`` file of ``dag_rider_tpu_torch/`` (and ``chip_smoke.py``,
+which runs on a machine without JAX) is parsed with ``ast``; an import of
+``jax``, ``jaxlib`` or ``dag_rider_tpu`` anywhere in it, lazy imports
+inside functions included, fails its case. Then the consensus entry point
+is imported, and a small cluster run, in a fresh interpreter where those
+packages cannot be imported at all.
+"""
+
+import ast
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "dag_rider_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "dag_rider_tpu")
+FILES = sorted(p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")) + ["chip_smoke.py"]
+
+
+def imported_modules(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module:
+                yield node.module
+
+
+def forbidden(name: str) -> bool:
+    return name.split(".")[0] in FORBIDDEN
+
+
+def test_the_guard_sees_what_it_must():
+    assert forbidden("jax.numpy") and forbidden("jaxlib") and forbidden("dag_rider_tpu.config")
+    assert not forbidden("dag_rider_tpu_torch.config") and not forbidden("numpy")
+    tree = ast.parse("def f():\n    from dag_rider_tpu.ops import field\n    import jax\n")
+    assert [m for m in imported_modules(tree) if forbidden(m)] == ["dag_rider_tpu.ops", "jax"]
+    assert len(FILES) > 40
+
+
+@pytest.mark.parametrize("rel", FILES)
+def test_no_jax_import(rel):
+    tree = ast.parse((ROOT / rel).read_text(), filename=rel)
+    bad = [m for m in imported_modules(tree) if forbidden(m)]
+    assert not bad, f"{rel} imports {bad}"
+
+
+def test_simulator_runs_with_jax_blocked():
+    code = textwrap.dedent(
+        """
+        import importlib.abc, sys
+
+        class Block(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib", "dag_rider_tpu"):
+                    raise ImportError(f"blocked: {name}")
+                return None
+
+        sys.meta_path.insert(0, Block())
+        for name in list(sys.modules):
+            if name.split(".")[0] in ("jax", "jaxlib", "dag_rider_tpu"):
+                del sys.modules[name]
+        from dag_rider_tpu_torch import Config
+        from dag_rider_tpu_torch.consensus.simulator import Simulation
+
+        sim = Simulation(Config(n=4, coin="round_robin"), verifier="cpu")
+        sim.submit_blocks(per_process=2)
+        sim.run(max_messages=2000)
+        sim.check_agreement()
+        assert any(sim.deliveries)
+        assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "dag_rider_tpu")]
+        print("ok")
+        """
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("ok")

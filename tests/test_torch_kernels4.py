@@ -29,6 +29,7 @@ from dag_rider_tpu_torch.core.types import Block, Vertex, VertexID
 from dag_rider_tpu_torch.ops import comb, cuda_group as CG, field as F
 from dag_rider_tpu_torch.verifier.base import KeyRegistry, VertexSigner
 from dag_rider_tpu_torch.verifier.cpu import CPUVerifier
+from dag_rider_tpu_torch.verifier.cert import CertVerifier
 from dag_rider_tpu_torch.verifier.cuda import CUDAVerifier, unpack
 from test_pallas_group import _Ref
 from test_torch_coin import port_keys
@@ -179,6 +180,16 @@ def test_coin_device_msm_without_card_raises(monkeypatch):
     assert ThresholdCoin(keys, 0, 4, msm="host")._msm is None
     cpu = ThresholdCoin(keys, 0, 4, device="cpu")
     assert cpu._msm.keywords["device"].type == "cpu"
+
+
+def test_coin_msm_none_raises():
+    """``msm`` takes the spellings ``CertVerifier`` takes: None is not a
+    second name for "host"."""
+    keys = port_keys(jth.ThresholdKeys.generate(4, 2, seed=b"coin-default"))
+    with pytest.raises(ValueError, match="coin MSM"):
+        ThresholdCoin(keys, 0, 4, msm=None)
+    with pytest.raises(ValueError, match="cert MSM"):
+        CertVerifier(KeyRegistry.generate_with_cert(4)[0], 3, msm=None)
 
 
 def test_coin_default_msm_on_cpu_device_equals_host_coin():
