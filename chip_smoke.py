@@ -14,11 +14,13 @@ signatures). The script:
 
 1. prints the card's name and power limit, builds the kernels from
    ``dag_rider_tpu_torch/csrc`` with nvcc, and prints the ptxas register
-   and spill report;
-2. builds the n = 256 registry, the device comb tables, and the signed
-   rounds, with a seeded subset corrupted (bad signature bit, another
-   vertex's signature, out-of-range source, s >= L, non-canonical R,
-   missing signature, tampered block);
+   and spill report; builds the native challenge library
+   (``csrc/challenge.cpp``, g++) and prints its build seconds;
+2. builds the n = 256 registry, the device comb tables, runs
+   ``CUDAVerifier.warmup`` at the path's bucket (no dispatch counter
+   booked), and signs the rounds, with a seeded subset corrupted (bad
+   signature bit, another vertex's signature, out-of-range source,
+   s >= L, non-canonical R, missing signature, tampered block);
 3. kernel phase: each kernel against its plain torch version on the card
    at the path's widths, exactly, timed with CUDA events beside the plain
    version and a lower bound on the card's time: the per-lane addition
@@ -35,7 +37,25 @@ signatures). The script:
    path on the card on every row; then the dispatch time (median of
    several, host prep and device split), sigs/s, peak device memory, and
    the device time split into copies, gather, tree and finish;
-5. BLS phases: the cooperative ``padd381_xx`` against its plain version
+5. host prep phase, on the same 4,096 rows: every row hashed so far took
+   the native route; the prep arrays byte-identical at 1 worker and at
+   W = min(4, cpus) workers (native) and at 1 worker with
+   ``DAGRIDER_NATIVE=0``, each timed (median of 7, the three in turns)
+   beside ``prep_stats()``;
+   ``verify_rounds`` streamed in 8 chunks of 512 at depth 1 and 2
+   (prep-ahead; three runs each, in turns), masks equal to the merged dispatch's with exactly 8
+   ``tree_sum_xyzt`` and 8 ``finish_check`` launches, wall and host/device
+   split; then seeded ``dispatch_raise`` and ``resolve_raise`` faults
+   (two each) contained with a second card verifier as the quarantine
+   tier (windows poisoned, chunks quarantined, none rejected, the same
+   masks), and a clean run after disarming;
+6. 8-bit comb phase (``DAGRIDER_COMB_BITS=8``): the n = 256 tables' build
+   time and bytes, one merged dispatch with exactly one ``tree_sum_xyzt``
+   (32 entries a group) and one ``finish_check``, its mask equal to the
+   4-bit mask on every row and the host oracle on the sample, its wall and
+   split, and the tree kernel at M = 32 against its plain version, exactly,
+   timed with CUDA events and in a CUDA graph beside its bound;
+7. BLS phases: the cooperative ``padd381_xx`` against its plain version
    on real curve points at 1, 128, 4,096, 8,192 and 65,536 lanes, and
    ``horner381`` (the Horner chain and the canonical form in one launch)
    against its plain version on the coin's and the certificate's real
@@ -48,15 +68,18 @@ signatures). The script:
    ``padd381_xx`` launches and one ``horner381``; the MSM's wall time and
    its device split into tables, gather, tree and ``horner381``, launched
    from the host and replayed as a CUDA graph (the card's time alone);
-6. consensus phase: the port's ``Simulation`` runs DAG-Rider at n = 256
+8. consensus phase: the port's ``Simulation`` runs DAG-Rider at n = 256
    (threshold-BLS coin, ``propose_empty``, ``gc_depth`` 24, two blocks a
    process) with one shared ``CUDAVerifier`` (coalesced, pipelined) and
    threshold coins whose MSM runs on the card and which share one
    oracle's books (``shared_coin_factory``), ``run(max_messages=256 *
    255)`` until every view decided ``CONS_WAVES`` waves, with the counters
-   set to 0 just before and read just after: ``tree_sum_xyzt`` and
-   ``finish_check`` once per pipeline dispatch, ``padd381_xx`` and
-   ``horner381`` exactly as the coin's MSMs require, nothing contained;
+   set to 0 just before and read just after (one chunk a pump cycle, so
+   the pipeline's dispatches run ``prep_batch`` and ``dispatch_prepped``
+   in turn; ``prep_batch_async`` engages from two chunks a cycle):
+   ``tree_sum_xyzt`` and ``finish_check`` once per pipeline dispatch,
+   ``padd381_xx`` and ``horner381`` exactly as the coin's MSMs require,
+   nothing contained;
    then the same construction with the host oracles (``CPUVerifier``,
    ``msm="host"``) and the same ``run`` calls, whose logs, leaders and
    decided waves must be byte-identical; prints rounds, waves, deliveries,
@@ -64,7 +87,8 @@ signatures). The script:
    and wave-interval p50, the seam and MSM walls and each run's host
    split, and holds the comb kernels against their plain versions at the
    phase's dispatch width;
-7. prints ``{"kernels": [...]}`` (with each kernel's ``consensus_launches``),
+9. prints ``{"kernels": [...]}`` (with each kernel's ``consensus_launches``;
+   the tree's row carries its M = 32 reading under ``at_m32``),
    the card line again, and as the last line ``{"ok": true, "device":
    {...}}``.
 
@@ -74,6 +98,7 @@ the repository: ``python3 chip_smoke.py`` (one card, no arguments).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -96,6 +121,9 @@ BAD_SHARE = 17  # index of the corrupted share, among the first f + 1
 WIDE_LANES = 65536  # padd381_xx's widest check, beyond the path's widths
 FIELD_MUL_WIDE = 262144  # field_mul's graph time at a width that fills the card
 MSM_REPEATS = 5
+
+PREP_REPEATS = 7  # host prep timings: median of this many, in turns
+STREAM_BUCKET = 512  # the streamed verify_rounds' chunk: 4,096 rows in 8 chunks
 
 CONS_N = 256  # the consensus phase's committee (BASELINE.json config #4)
 CONS_WAVES = 3  # every view decides at least this many waves
@@ -187,7 +215,7 @@ def main() -> int:
         from dag_rider_tpu_torch.core.types import Block, Vertex, VertexID
         from dag_rider_tpu_torch.crypto import ed25519
         from dag_rider_tpu_torch.ops import comb, cuda_field, cuda_group as CG, field as F
-        from dag_rider_tpu_torch.utils import build
+        from dag_rider_tpu_torch.utils import build, native
         from dag_rider_tpu_torch.verifier.base import KeyRegistry, VertexSigner
         from dag_rider_tpu_torch.verifier.cpu import CPUVerifier
         from dag_rider_tpu_torch.verifier.cuda import CUDAVerifier, unpack
@@ -218,6 +246,15 @@ def main() -> int:
     for stem in ("ed25519_group", "bls381_group"):
         for line in build.ptxas_report(stem):
             print(f"  ptxas {stem}: {line}")
+    # the native challenge library (g++), before any row is hashed: every
+    # row of every phase takes the native route unless a phase asks for
+    # DAGRIDER_NATIVE=0
+    t0 = time.perf_counter()
+    if native.load() is None:
+        fail(f"the native challenge library did not build from {native.SRC}")
+    print(f"native challenge library: {native.library_path().name}, g++ "
+          f"{native.last_build_s:.2f} s, load {time.perf_counter() - t0:.2f} s")
+    native.reset_rows()
 
     # -- set-up: registry, device tables, signed rounds ---------------------
     t0 = time.perf_counter()
@@ -230,6 +267,11 @@ def main() -> int:
     tables, b_tab = ver.comb_tables()
     torch.cuda.synchronize()
     t_tables = time.perf_counter() - t0
+    # warmup at the path's bucket: libraries, tables, native library and one
+    # all-padding dispatch, booking none of the dispatch counters
+    t_warm = ver.warmup(ROUNDS * N_KEYS)
+    if (ver.total_dispatches, ver.total_sigs_dispatched, ver.total_prepare_s) != (0, 0, 0.0):
+        fail("warmup() booked a dispatch counter")
     rng = np.random.default_rng(SEED)
     rounds = []
     t0 = time.perf_counter()
@@ -272,8 +314,8 @@ def main() -> int:
         rounds[r][i] = v
         corrupted.add(int(fi))
     print(f"set-up: keys {t_keys:.2f} s, device tables {t_tables:.2f} s "
-          f"({tables.numel() * 4 / 2**20:.0f} MiB), signing {total} vertices "
-          f"{t_sign:.2f} s, {len(corrupted)} corrupted")
+          f"({tables.numel() * 4 / 2**20:.0f} MiB), warmup at {total} rows {t_warm:.2f} s, "
+          f"signing {total} vertices {t_sign:.2f} s, {len(corrupted)} corrupted")
 
     flat = [v for rnd in rounds for v in rnd]
     u8, i32 = ver.prepare_batch(flat)
@@ -324,6 +366,8 @@ def main() -> int:
            cuda_ms(lambda: comb.tree_sum_packed(entries), 2, 1),
            4 * (entries.numel() + acc.numel()),
            tree_adds * (8 * IMAD_PER_PRODUCT + 22 * d2_nnz), flat_n)
+    report[-1]["entries_per_group"] = m
+    report[-1]["graph_ms"] = graph_ms(lambda: CG.tree_sum_xyzt(entries), 20)
     tree_ms = report[-1]["ms"]
 
     # the real rows with the edge rows of tests/torch_edge_rows.py (valid,
@@ -455,6 +499,13 @@ def main() -> int:
           f"{gather_ms:.3f} ms, tree {tree_ms:.3f} ms, finish {finish_ms:.3f} ms; sum "
           f"{copy_ms + gather_ms + tree_ms + finish_ms:.3f} ms")
 
+    if native.ROWS_HASHED["hashlib"] or not native.ROWS_HASHED["native"]:
+        fail(f"rows hashed by route {native.ROWS_HASHED}; DAGRIDER_NATIVE is on, so every "
+             f"row must take the native route")
+    host_prep_phase(ver, rounds, mask)
+    tree_row = next(r for r in report if r["name"] == "tree_sum_xyzt")
+    tree_row["at_m32"] = comb8_phase(reg, rounds, mask, sample, oracle, imad_per_s)
+
     report.extend(bls_phases(dev, imad_per_s))
 
     launches = consensus_phase()
@@ -467,6 +518,243 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+@contextlib.contextmanager
+def env(**values):
+    """Set environment variables for a block and restore them after."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def flat_mask(masks) -> list:
+    return [bool(bit) for mk in masks for bit in mk]
+
+
+def host_prep_phase(ver, rounds, mask) -> None:
+    """The verifier's host half on the path's 4,096 rows: the prep arrays
+    byte-identical at 1 worker and W = min(4, cpus) workers with the
+    native challenge route and at 1 worker with DAGRIDER_NATIVE=0 (each
+    timed, each row on the route it claims); ``verify_rounds`` streamed in
+    8 chunks of ``STREAM_BUCKET`` at depth 1 and 2 (prep-ahead), masks
+    equal to the merged dispatch's with exactly 8 launches of each
+    kernel; then seeded dispatch and resolve faults contained (poisoned
+    windows and quarantined chunks, nothing rejected, the same masks),
+    and a clean run after disarming. Fails on any mismatch."""
+    import torch
+
+    from dag_rider_tpu_torch.ops import cuda_field, cuda_group as CG
+    from dag_rider_tpu_torch.utils import native
+    from dag_rider_tpu_torch.verifier.cuda import CUDAVerifier
+    from dag_rider_tpu_torch.verifier.faults import VerifierFaultInjector, VerifierFaultPlan
+
+    flat = [v for rnd in rounds for v in rnd]
+    total = len(flat)
+    cpus = os.cpu_count() or 1
+    w = min(4, cpus)
+    print(f"host prep phase: os.cpu_count() {cpus}, W = {w}, {total} rows")
+    configs = (("1 worker, native", 1, "1"), (f"{w} workers, native", w, "1"),
+               ("1 worker, DAGRIDER_NATIVE=0", 1, "0"))
+    arrays, stats = {}, {}
+    walls, rows = {c[0]: [] for c in configs}, {c[0]: {} for c in configs}
+    # the three in turns, PREP_REPEATS rounds: the host's load drifts
+    # between the configurations' runs, not within one round
+    for _ in range(PREP_REPEATS):
+        for name, workers, flag in configs:
+            ver.prep_workers = workers
+            ver._prep()  # (re)build the engine outside the timed call
+            before = dict(native.ROWS_HASHED)
+            with env(DAGRIDER_NATIVE=flag):
+                t0 = time.perf_counter()
+                out = ver._prepare(flat, total)
+                walls[name].append(time.perf_counter() - t0)
+            for k in native.ROWS_HASHED:
+                rows[name][k] = rows[name].get(k, 0) + native.ROWS_HASHED[k] - before[k]
+            arrays[name], stats[name] = out, ver.prep_stats()
+    for name, workers, flag in configs:
+        route = "native" if flag == "1" else "hashlib"
+        got = rows[name]
+        if got[route] != PREP_REPEATS * int(arrays[name][0][:, 129].sum()) or (
+                sum(got.values()) != got[route]):
+            fail(f"prep {name}: rows hashed by route {got}, want all on the {route} route")
+        print(f"  prep {name}: median {statistics.median(walls[name]) * 1e3:.2f} ms wall (runs "
+              f"{[round(t * 1e3, 2) for t in walls[name]]} ms, in turns with the others); "
+              f"rows hashed {got}; prep_stats after its last run {stats[name]}")
+    first = arrays[configs[0][0]]
+    for name, out in arrays.items():
+        if any(a.tobytes() != b.tobytes() for a, b in zip(out, first)):
+            fail(f"prep arrays of {name} differ from those of {configs[0][0]}")
+    print(f"  prep arrays (u8 {first[0].shape}, i32 {first[1].shape}) byte-identical across "
+          f"the three")
+
+    chunks = -(-total // STREAM_BUCKET)
+    depth0 = ver.pipeline_depth
+    ver.prep_workers = w
+    ver.fixed_bucket = STREAM_BUCKET
+    try:
+        runs = {d: {"wall": [], "prep": [], "wait": []} for d in (1, 2)}
+        for _ in range(3):  # depth 1 and 2 in turns
+            for depth in (1, 2):
+                ver.pipeline_depth = depth
+                p0, d0 = ver.total_prepare_s, ver.total_dispatch_s
+                torch.cuda.synchronize()
+                CG.reset_launches()
+                cuda_field.reset_launches()
+                t0 = time.perf_counter()
+                got = ver.verify_rounds(rounds)
+                runs[depth]["wall"].append(time.perf_counter() - t0)
+                torch.cuda.synchronize()
+                runs[depth]["prep"].append(ver.total_prepare_s - p0)
+                runs[depth]["wait"].append(ver.total_dispatch_s - d0)
+                launches = {**CG.LAUNCHES, **cuda_field.LAUNCHES}
+                want = {"padd_xx": 0, "tree_sum_xyzt": chunks, "finish_check": chunks,
+                        "pow22523": 0, "field_mul": 0}
+                if launches != want:
+                    fail(f"streamed depth {depth}: launches {launches}, want {want}")
+                if flat_mask(got) != mask:
+                    fail(f"streamed depth {depth}: masks differ from the merged dispatch's")
+        if ver.poisoned_windows or ver.quarantined_chunks:
+            fail("streamed: a clean run contained faults")
+        for depth, r in runs.items():
+            print(f"  streamed verify_rounds, depth {depth}, {chunks} chunks of {STREAM_BUCKET}, "
+                  f"{w} prep workers (prep-ahead {'on' if depth > 1 else 'off'}): wall median "
+                  f"{statistics.median(r['wall']) * 1e3:.2f} ms (runs "
+                  f"{[round(t * 1e3, 2) for t in r['wall']]} ms, in turns); host prep "
+                  f"{statistics.median(r['prep']) * 1e3:.2f} ms, resolve wait "
+                  f"{statistics.median(r['wait']) * 1e3:.2f} ms; {chunks} + {chunks} launches "
+                  f"each run; masks equal")
+
+        # chaos on the card: the ladder's next tier is a second card verifier
+        tier = CUDAVerifier(ver.registry)
+        tier.comb_tables()
+        ver.quarantine_verifier = tier
+        ver.pipeline_depth = 2
+        for kind, seed in (("dispatch_raise", SEED), ("resolve_raise", SEED + 1)):
+            g0 = (ver.poisoned_windows, ver.quarantined_chunks, ver.quarantine_rejected)
+            inj = VerifierFaultInjector(VerifierFaultPlan(**{kind: 1.0}, max_faults=2, seed=seed))
+            inj.arm(ver)
+            try:
+                got = ver.verify_rounds(rounds)
+            finally:
+                inj.disarm()
+            g = [a - b for a, b in zip(
+                (ver.poisoned_windows, ver.quarantined_chunks, ver.quarantine_rejected), g0)]
+            print(f"  chaos {kind} (max_faults 2, seed {seed}): {inj.faults_injected} faults, "
+                  f"poisoned windows {g[0]}, quarantined chunks {g[1]}, rejected {g[2]}")
+            if inj.faults_injected != 2 or g[0] <= 0 or g[1] <= 0 or g[2] != 0:
+                fail(f"chaos {kind}: faults {inj.faults_injected}, gauges {g}")
+            if flat_mask(got) != mask:
+                fail(f"chaos {kind}: masks differ from the clean run's")
+        g0 = (ver.poisoned_windows, ver.quarantined_chunks, ver.quarantine_rejected)
+        if flat_mask(ver.verify_rounds(rounds)) != mask or g0 != (
+                ver.poisoned_windows, ver.quarantined_chunks, ver.quarantine_rejected):
+            fail("the clean run after disarming differs or contained a fault")
+        print("  disarmed: a clean streamed run gives the same masks, nothing contained")
+    finally:
+        ver.fixed_bucket = None
+        ver.pipeline_depth = depth0
+        ver.quarantine_verifier = None
+        ver.prep_workers = None
+
+
+def comb8_phase(reg, rounds, mask, sample, oracle, imad_per_s: float) -> dict:
+    """The 8-bit comb (DAGRIDER_COMB_BITS=8) at n = 256: the table build
+    (time and bytes), one merged 4,096-signature dispatch whose mask
+    equals the 4-bit mask on every row and the host oracle on the sample,
+    with exactly one ``tree_sum_xyzt`` (32 entries a group) and one
+    ``finish_check`` launch, its wall and split, and the tree kernel at
+    M = 32 against its plain version. Returns the tree's report at M = 32."""
+    import torch
+
+    from dag_rider_tpu_torch.ops import comb, cuda_field, cuda_group as CG, field as F
+    from dag_rider_tpu_torch.verifier.cuda import CUDAVerifier, unpack8
+
+    flat = [v for rnd in rounds for v in rnd]
+    total = len(flat)
+    with env(DAGRIDER_COMB_BITS="8"):
+        v8 = CUDAVerifier(reg)
+    dev = v8.device
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    tables, b_tab = v8.comb_tables()
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    print(f"8-bit comb: tables built in {t_build:.2f} s; key tables {tuple(tables.shape)} "
+          f"{tables.numel() * 4} B, base table {tuple(b_tab.shape)} {b_tab.numel() * 4} B; "
+          f"device memory +{torch.cuda.memory_allocated() - mem0} B")
+
+    torch.cuda.synchronize()
+    CG.reset_launches()
+    cuda_field.reset_launches()
+    masks = v8.verify_rounds(rounds)
+    torch.cuda.synchronize()
+    launches = {**CG.LAUNCHES, **cuda_field.LAUNCHES}
+    want = {"padd_xx": 0, "tree_sum_xyzt": 1, "finish_check": 1, "pow22523": 0, "field_mul": 0}
+    if launches != want:
+        fail(f"8-bit dispatch launched {launches}, want {want}")
+    m8 = flat_mask(masks)
+    if m8 != mask:
+        bad = [i for i in range(total) if m8[i] != mask[i]]
+        fail(f"8-bit mask differs from the 4-bit mask at rows {bad[:10]}")
+    if [m8[i] for i in sample] != oracle:
+        fail("8-bit mask differs from the host oracle on the sample")
+    walls, preps, devs = [], [], []
+    for _ in range(PATH_REPEATS):
+        t0 = time.perf_counter()
+        again = v8.verify_rounds(rounds)
+        walls.append(time.perf_counter() - t0)
+        preps.append(v8.last_prepare_s)
+        devs.append(v8.last_dispatch_s)
+        if again != masks:
+            fail("a repeated 8-bit dispatch returned another mask")
+    wall = statistics.median(walls)
+    print(f"8-bit dispatch ({total} sigs, median of {PATH_REPEATS}): {wall * 1e3:.1f} ms wall = "
+          f"host prep {statistics.median(preps) * 1e3:.1f} ms + device "
+          f"{statistics.median(devs) * 1e3:.1f} ms; {total / wall:.0f} sigs/s; launches "
+          f"{launches}; mask equal to the 4-bit mask on all {total} rows and the host oracle "
+          f"on {len(sample)}")
+
+    u8, i32 = v8.prepare_batch(flat)
+    u8_dev, i32_dev = torch.from_numpy(u8).to(dev), torch.from_numpy(i32).to(dev)
+
+    def unpack_gather():
+        y = unpack8(u8_dev, i32_dev)
+        return comb.gather_entries8(y.s_nibbles, y.k_nibbles, y.key_idx, tables, b_tab)
+
+    x = unpack8(u8_dev, i32_dev)
+    entries = unpack_gather()
+    groups, m = entries.shape[0] * entries.shape[1], entries.shape[2]
+    acc = CG.tree_sum_xyzt(entries)
+    plain = comb.tree_sum_packed(entries)
+    err = int((acc.long() - plain.long()).abs().max().item())
+    d2_nnz = int((F.D2 != 0).sum())
+    b_ms, b_by = bound(4 * (entries.numel() + acc.numel()),
+                       groups * (m - 1) * (8 * IMAD_PER_PRODUCT + 22 * d2_nnz), imad_per_s)
+    ms = cuda_ms(lambda: CG.tree_sum_xyzt(entries), 20)
+    g_ms = graph_ms(lambda: CG.tree_sum_xyzt(entries), 20)
+    plain_ms = cuda_ms(lambda: comb.tree_sum_packed(entries), 2, 1)
+    print(f"kernel tree_sum_xyzt at M = {m}: {groups} groups, equal {err == 0}, {ms:.4f} ms, "
+          f"{g_ms:.4f} ms in a CUDA graph (plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by})")
+    if err != 0:
+        fail(f"tree_sum_xyzt at M = {m} disagrees with its plain version (max abs err {err})")
+    gather_ms = cuda_ms(unpack_gather, 10)
+    finish_ms = cuda_ms(lambda: CG.finish_check(x.r_y, x.r_sign, acc), 20)
+    print(f"8-bit device breakdown (CUDA events): unpack + gather {gather_ms:.3f} ms, tree "
+          f"{ms:.3f} ms, finish {finish_ms:.3f} ms")
+    return {"name": "tree_sum_xyzt", "route": "cuda", "source": CG.SOURCE,
+            "replaces": "dag_rider_tpu/ops/pallas_group.py:211",
+            "launches": launches["tree_sum_xyzt"], "max_abs_err": err, "ms": ms,
+            "graph_ms": g_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "lanes": groups, "entries_per_group": m}
 
 
 def shared_coin_factory(coin_cls, keys, n: int, **coin_kw):

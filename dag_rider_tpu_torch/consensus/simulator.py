@@ -175,7 +175,7 @@ class Simulation:
         if cfg.lanes:
             raise NotImplementedError(
                 "dissemination lanes (lanes/, transport/lanebus.py) are not "
-                "ported yet (ROADMAP Open items 10)"
+                "ported yet (ROADMAP Queue 1 item 8)"
             )
         if self.flight is not None:
             # a dump captures every process's full counter state
@@ -226,23 +226,17 @@ class Simulation:
         if kind == "sharded":
             raise ValueError(
                 'verifier "sharded" is not ported yet (ROADMAP Queue 1 '
-                'item 9: the multi-GPU verifier); use "cpu" or "device"'
+                'item 4: the multi-GPU verifier); use "cpu" or "device"'
             )
         if kind not in ("cpu", "device"):
             raise ValueError(f"unknown verifier {kind!r}")
         cert_signers = None
         cert_verifier = None
         if with_cert:
-            if cert_pair not in (None, "host"):
-                raise NotImplementedError(
-                    f"cert pairing {cert_pair!r}: device pairing is not "
-                    "ported yet (ROADMAP Queue 1 item 14); the port pairs "
-                    "on the host"
-                )
             if self.cfg.cert_span:
                 raise NotImplementedError(
                     "span certificates (cert_span > 0) are not ported yet "
-                    "(ROADMAP Open items 6)"
+                    "(ROADMAP Queue 1 item 5)"
                 )
             # same seed prefix as generate(): the ed25519 keys are
             # identical, so cert-on and cert-off runs verify the exact
@@ -256,6 +250,7 @@ class Simulation:
                 self.cfg.quorum,
                 msm="device" if cert_msm is None else cert_msm,
                 device=device,
+                pair=cert_pair,
             )
         else:
             reg, seeds = KeyRegistry.generate(self.cfg.n)
@@ -318,7 +313,7 @@ class Simulation:
         """One Mempool front door per process in the reference; the port
         has no mempool yet."""
         raise NotImplementedError(
-            "the mempool (mempool/) is not ported yet (ROADMAP Open items 10)"
+            "the mempool (mempool/) is not ported yet (ROADMAP Queue 1 item 8)"
         )
 
     def run(self, max_messages: int = 100_000) -> int:

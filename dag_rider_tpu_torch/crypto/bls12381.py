@@ -985,16 +985,31 @@ def sign_many(
     sks: Sequence[int],
     msgs: Sequence[bytes],
     domain: bytes = b"dagrider-coin-v1",
+    backend: Optional[str] = None,
 ) -> List[bytes]:
     """Batched `sign` — byte-for-byte [sign(sk, m) for sk, m in zip(...)].
 
-    Only the host path is ported: the native (cffi) and device
-    (``ops/bls_g1.py``) lanes of the JAX package are later work.
+    Backend (explicit arg beats the DAGRIDER_CERT_SIGN knob): ``host``, the
+    sequential oracle (default). The JAX package's ``native`` (cffi) and
+    ``device`` (``ops/bls_g1.py``) lanes are not ported yet and raise.
     """
     sks = list(sks)
     msgs = list(msgs)
     if len(sks) != len(msgs):
         raise ValueError("sign_many: sks and msgs length mismatch")
+    if backend is None:
+        from dag_rider_tpu_torch import config
+
+        backend = config.env_choice("DAGRIDER_CERT_SIGN")
+    if backend in ("native", "device"):
+        raise NotImplementedError(
+            f"sign_many backend {backend!r} is not ported yet (ROADMAP Queue 1 "
+            "item 6: the signing lanes); use \"host\""
+        )
+    if backend != "host":
+        raise ValueError(
+            f'sign_many backend must be "host", "native" or "device", got {backend!r}'
+        )
     return [
         g1_compress(g1_mul(sk, hash_to_g1(m, domain)))
         for sk, m in zip(sks, msgs)

@@ -103,7 +103,7 @@ def derive_epoch_keys(
     if mode == "dkg":
         raise NotImplementedError(
             'epoch rotation mode "dkg" needs crypto/dkg.py, which the port '
-            "does not have yet (ROADMAP Open items 7: DKG); use "
+            "does not have yet (ROADMAP Queue 1 item 6: DKG); use "
             '"seed" or "none"'
         )
     raise ValueError(f"unknown epoch rotation mode {mode!r}")

@@ -1,4 +1,5 @@
-"""Fixed-key comb verification (4-bit windows) — the port's device path.
+"""Fixed-key comb verification (4-bit and 8-bit windows) — the port's
+device path.
 
 Torch twin of ``dag_rider_tpu/ops/comb.py``. The committee is fixed for a
 run, so [k]A becomes a sum of 64 entries of per-key tables
@@ -7,6 +8,9 @@ run, so [k]A becomes a sum of 64 entries of per-key tables
 gather plus a 6-level tree of complete additions; the tail decompresses R
 and checks [s]B == R + [k]A projectively. The equation is not rearranged
 into [s]B - [k]A, which would differ on keys with 8-torsion components.
+The 8-bit variant (``DAGRIDER_COMB_BITS=8``) sums 32 entries of 256-entry
+windows instead: half the gather rows and a 5-level tree, at 16x the
+table memory.
 
 Representation: a *packed* point is one int32 tensor [..., 4, 22] with
 rows (X, Y, Z, T); a *cached* entry has rows (Y-X, Y+X, 2dT, 2Z).
@@ -25,6 +29,8 @@ from dag_rider_tpu_torch.ops import curve, field as F
 
 WINDOWS = 64  # 4-bit windows over 256-bit scalars
 ENTRIES = 16
+WINDOWS8 = 32  # 8-bit windows
+ENTRIES8 = 256
 
 
 def pack_point(p: curve.Point) -> torch.Tensor:
@@ -135,6 +141,66 @@ def base_table_xyzt() -> np.ndarray:
     return np.stack([xs, ys, ones, ts], axis=2)  # [64, 16, 4, 22]
 
 
+# Digit -> table-position permutation for the 8-bit tables. The build
+# stores each level's entries block-ordered ([all evens; all odds] of the
+# previous level's order) instead of digit-ordered, as the JAX package's
+# tables are (an interleaving stack inside its scan body miscompiled on the
+# TPU). Position order is L_0 = [1], L_{l+1} = [2d for d in L_l] + [2d+1
+# for d in L_l].
+def _digit_pos8() -> np.ndarray:
+    order = [0, 1]
+    cur = [1]
+    for _ in range(7):
+        cur = [2 * d for d in cur] + [2 * d + 1 for d in cur]
+        order += cur
+    pos = np.zeros(ENTRIES8, dtype=np.int32)
+    for p, d in enumerate(order):
+        pos[d] = p
+    return pos
+
+
+DIGIT_POS8 = _digit_pos8()
+
+
+def build_key_tables8(
+    a_x: torch.Tensor, a_y: torch.Tensor, a_t: torch.Tensor
+) -> torch.Tensor:
+    """8-bit-window comb tables: [n, 32, 256, 4, 22] int32 on the keys'
+    device. TABLE[key, w, DIGIT_POS8[d]] = d * 256^w * A_key (block
+    order, see :data:`DIGIT_POS8`).
+
+    Each window's 256 entries come in 8 levels: the evens of a level are
+    doubles of the previous level, the odds add the window base b. Each
+    odd step ``padd_cached(evens, to_cached(b))`` is ``padd_xx(evens, b)``,
+    so it runs through the padd kernel on CUDA; the doublings stay plain
+    torch, as they are plain jnp in the JAX package.
+    """
+    from dag_rider_tpu_torch.ops import cuda_group
+
+    n = a_x.shape[0]
+    one = F.const("ONE", a_x.device).expand(n, F.LIMBS)
+    b = torch.stack([a_x, a_y, one, a_t], dim=-2)  # packed [n, 4, 22]
+    ident = pack_point(curve.identity((n,), a_x.device))
+    windows = []
+    for _ in range(WINDOWS8):
+        levels = [ident[:, None], b[:, None]]  # positions 0 and 1
+        prev = b[:, None]  # [n, m, 4, 22]
+        for _lvl in range(7):
+            evens = pdouble_packed(prev)
+            m = evens.shape[1]
+            odds = cuda_group.padd_xx(
+                to_limb_major(evens.reshape(n * m, 4, F.LIMBS)),
+                to_limb_major(b.repeat_interleave(m, dim=0)),
+            )
+            lvl = torch.cat([evens, from_limb_major(odds).reshape(n, m, 4, F.LIMBS)], dim=1)
+            levels.append(lvl)
+            prev = lvl
+        windows.append(torch.cat(levels, dim=1))  # [n, 256, 4, 22]
+        for _ in range(8):
+            b = pdouble_packed(b)
+    return torch.stack(windows, dim=1)  # [n, 32, 256, 4, 22]
+
+
 # ---------------------------------------------------------------------------
 # The comb verify core
 # ---------------------------------------------------------------------------
@@ -191,6 +257,46 @@ def comb_verify_core(
     from dag_rider_tpu_torch.ops import cuda_group
 
     entries = gather_entries(s_nibbles, k_nibbles, key_idx, key_tables, b_table)
+    acc = cuda_group.tree_sum_xyzt(entries)  # [B, 2, 4, 22]
+    ok = cuda_group.finish_check(r_y, r_sign, acc)
+    return ok & a_valid & prevalid
+
+
+def gather_entries8(
+    s_bytes: torch.Tensor,
+    k_bytes: torch.Tensor,
+    key_idx: torch.Tensor,
+    key_tables: torch.Tensor,
+    b_table: torch.Tensor,
+) -> torch.Tensor:
+    """The 8-bit comb walk's table entries: [B, 2, 32, 4, 22]. Tables
+    arrive flat: key_tables [n * 32 * 256, 88], b_table [32 * 256, 88];
+    s_bytes/k_bytes are the raw little-endian scalar bytes, int64 [B, 32]."""
+    pos = torch.as_tensor(DIGIT_POS8, device=s_bytes.device).long()
+    wins = torch.arange(WINDOWS8, device=s_bytes.device)[None, :]
+    b_rows = b_table[wins * ENTRIES8 + pos[s_bytes]]  # [B, 32, 88]
+    a_rows = key_tables[(key_idx[:, None] * WINDOWS8 + wins) * ENTRIES8 + pos[k_bytes]]
+    stacked = torch.stack([b_rows, a_rows], dim=1)  # [B, 2, 32, 88]
+    return stacked.reshape(*stacked.shape[:-1], 4, F.LIMBS)
+
+
+def comb_verify_core8(
+    s_bytes: torch.Tensor,
+    k_bytes: torch.Tensor,
+    key_idx: torch.Tensor,
+    key_tables: torch.Tensor,
+    b_table: torch.Tensor,
+    a_valid: torch.Tensor,
+    r_y: torch.Tensor,
+    r_sign: torch.Tensor,
+    prevalid: torch.Tensor,
+) -> torch.Tensor:
+    """8-bit-window twin of :func:`comb_verify_core`: the same accept
+    mask, from the byte digits of s and k (int64 [B, 32]) and the tables
+    of :func:`build_key_tables8`. The tree runs at 32 entries a group."""
+    from dag_rider_tpu_torch.ops import cuda_group
+
+    entries = gather_entries8(s_bytes, k_bytes, key_idx, key_tables, b_table)
     acc = cuda_group.tree_sum_xyzt(entries)  # [B, 2, 4, 22]
     ok = cuda_group.finish_check(r_y, r_sign, acc)
     return ok & a_valid & prevalid

@@ -5,7 +5,7 @@ the retroactive leader chain of the vector pump
 (``consensus.process.Process._leader_path``) descends the dense strong-edge
 mirrors with it. The module's device functions (``reach_chain``,
 ``leader_reach``, ``closure_from``, ...) are not ported yet (ROADMAP Queue 1
-item 15).
+item 7).
 
 The DAG is encoded as dense tensors indexed by (round, source):
 ``strong[r, i, j]`` means vertex (r, i) has a strong edge to vertex

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 from typing import Callable, List, Optional, Sequence, Tuple
 
+from dag_rider_tpu_torch import config
 from dag_rider_tpu_torch.core.types import RoundCertificate
 from dag_rider_tpu_torch.crypto import bls12381 as bls
 from dag_rider_tpu_torch.ops import bls_msm
@@ -34,6 +35,20 @@ from dag_rider_tpu_torch.verifier.base import KeyRegistry
 #: memoized verdicts kept per verifier (bounded like the crypto-layer
 #: precompute caches)
 _VERDICT_CACHE_MAX = 4096
+
+
+def _resolve_pair(pair: Optional[str]) -> str:
+    """The aggregate-pairing backend: ``pair``, else DAGRIDER_CERT_PAIR.
+    Only the host pairing is ported; "device" raises."""
+    choice = pair if pair is not None else config.env_choice("DAGRIDER_CERT_PAIR")
+    if choice == "device":
+        raise NotImplementedError(
+            "device pairing (cert pair \"device\" / DAGRIDER_CERT_PAIR=device) is "
+            "not ported yet (ROADMAP Queue 1 item 5); the port pairs on the host"
+        )
+    if choice != "host":
+        raise ValueError(f'cert pairing must be "host" or "device", got {choice!r}')
+    return choice
 
 
 class CertVerifier:
@@ -49,6 +64,9 @@ class CertVerifier:
         device: where a "device" MSM runs: ``cuda`` unless the caller
             passes ``"cpu"`` (the plain torch path). Raises at
             construction when CUDA is asked for and there is no card.
+        pair: "host" (the host multi-pairing); None reads
+            DAGRIDER_CERT_PAIR. "device" (the JAX package's lane-parallel
+            pairing) is not ported yet and raises.
     """
 
     def __init__(
@@ -57,6 +75,7 @@ class CertVerifier:
         quorum: int,
         msm: str = "device",
         device=None,
+        pair: Optional[str] = None,
     ) -> None:
         if not registry.bls_public_keys:
             raise ValueError(
@@ -65,6 +84,7 @@ class CertVerifier:
             )
         if msm not in ("host", "device"):
             raise ValueError(f'cert MSM must be "host" or "device", got {msm!r}')
+        self.pair = _resolve_pair(pair)
         self.registry = registry
         self.quorum = int(quorum)
         self.msm = msm

@@ -1,0 +1,150 @@
+"""The port reads every verify and certificate knob where the reference does.
+
+One case per row of the knob table: each knob either takes the port's real
+branch (``DAGRIDER_COMB_BITS``, ``DAGRIDER_PREP_WORKERS``,
+``DAGRIDER_NATIVE``, ``sign_many(backend="host")``) or, where the branch is
+not ported yet, raises ``NotImplementedError`` naming its ROADMAP Queue 1
+item — never a quiet fall-through to another route. The seams the port
+does not have yet name their current item as well.
+"""
+
+import pytest
+
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
+from dag_rider_tpu_torch import Config
+from dag_rider_tpu_torch.consensus.simulator import Simulation
+from dag_rider_tpu_torch.core.types import Block, Vertex, VertexID
+from dag_rider_tpu_torch.crypto import bls12381 as bls
+from dag_rider_tpu_torch.epoch.manager import derive_epoch_keys
+from dag_rider_tpu_torch.utils import native
+from dag_rider_tpu_torch.verifier.base import KeyRegistry, VertexSigner
+from dag_rider_tpu_torch.verifier.cert import CertVerifier
+from dag_rider_tpu_torch.verifier.cuda import CUDAVerifier
+
+
+@pytest.fixture(scope="module")
+def reg():
+    return KeyRegistry.generate(4)[0]
+
+
+@pytest.fixture(scope="module")
+def cert_reg():
+    return KeyRegistry.generate_with_cert(4)[0]
+
+
+# -- DAGRIDER_COMB / comb= ------------------------------------------------
+
+
+def test_comb_off_raises_naming_the_windowed_path(reg, monkeypatch):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+        CUDAVerifier(reg, comb=False, device="cpu")
+    monkeypatch.setenv("DAGRIDER_COMB", "0")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+        CUDAVerifier(reg, device="cpu")
+    # the explicit argument beats the knob
+    assert CUDAVerifier(reg, comb=True, device="cpu").u8_cols == 131
+
+
+# -- DAGRIDER_COMB_BITS -----------------------------------------------------
+
+
+@pytest.mark.parametrize("bits, cols", [("", 131), ("4", 131), ("8", 67)])
+def test_comb_bits_selects_the_layout(reg, monkeypatch, bits, cols):
+    monkeypatch.setenv("DAGRIDER_COMB_BITS", bits)
+    v = CUDAVerifier(reg, device="cpu")
+    u8, i32 = v.prepare_batch([])
+    assert v.u8_cols == cols and u8.shape == (16, cols) and i32.shape == (16, 23)
+
+
+def test_comb_bits_rejects_other_widths(reg, monkeypatch):
+    monkeypatch.setenv("DAGRIDER_COMB_BITS", "16")
+    with pytest.raises(ValueError, match="DAGRIDER_COMB_BITS"):
+        CUDAVerifier(reg, device="cpu")
+
+
+# -- DAGRIDER_PREP_WORKERS / DAGRIDER_NATIVE --------------------------------
+
+
+def test_prep_workers_knob_sizes_the_engine(reg, monkeypatch):
+    monkeypatch.setenv("DAGRIDER_PREP_WORKERS", "3")
+    v = CUDAVerifier(reg, device="cpu")
+    assert v.prep_stats()["workers"] == 3
+    v.prep_workers = 1  # the attribute beats the knob
+    assert v.prep_stats()["workers"] == 1
+
+
+@pytest.mark.parametrize("flag, route", [("1", "native"), ("0", "hashlib")])
+def test_native_knob_picks_the_hash_route(monkeypatch, flag, route):
+    reg, seeds = KeyRegistry.generate(2)
+    vs = [
+        VertexSigner(seeds[i]).sign_vertex(
+            Vertex(id=VertexID(1, i), block=Block((b"k",)), strong_edges=(VertexID(0, 0),))
+        )
+        for i in range(2)
+    ]
+    monkeypatch.setenv("DAGRIDER_NATIVE", flag)
+    before = dict(native.ROWS_HASHED)
+    CUDAVerifier(reg, device="cpu").prepare_batch(vs)
+    other = "hashlib" if route == "native" else "native"
+    assert native.ROWS_HASHED[route] - before[route] == 2
+    assert native.ROWS_HASHED[other] == before[other]
+
+
+# -- DAGRIDER_CERT_SIGN / sign_many(backend=) -------------------------------
+
+
+SKS = [3, 5, 0, bls.R - 1]
+MSGS = [b"a", b"wave-7", b"", b"x" * 100]
+
+
+def test_sign_many_host_backend_equals_sign(monkeypatch):
+    want = [bls.sign(sk, m) for sk, m in zip(SKS, MSGS)]
+    assert bls.sign_many(SKS, MSGS, backend="host") == want
+    assert bls.sign_many(SKS, MSGS) == want  # the knob's default is host
+    monkeypatch.setenv("DAGRIDER_CERT_SIGN", "device")
+    assert bls.sign_many(SKS, MSGS, backend="host") == want  # argument beats knob
+
+
+@pytest.mark.parametrize("backend", ["native", "device"])
+def test_sign_many_unported_backends_raise(monkeypatch, backend):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        bls.sign_many(SKS, MSGS, backend=backend)
+    monkeypatch.setenv("DAGRIDER_CERT_SIGN", backend)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        bls.sign_many(SKS, MSGS)
+
+
+def test_sign_many_rejects_unknown_backend():
+    with pytest.raises(ValueError, match="sign_many backend"):
+        bls.sign_many(SKS, MSGS, backend="gpu")
+
+
+# -- DAGRIDER_CERT_PAIR / CertVerifier(pair=) ------------------------------
+
+
+def test_cert_pair_device_raises(cert_reg, monkeypatch):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        CertVerifier(cert_reg, 3, msm="host", pair="device")
+    assert CertVerifier(cert_reg, 3, msm="host").pair == "host"
+    monkeypatch.setenv("DAGRIDER_CERT_PAIR", "device")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        CertVerifier(cert_reg, 3, msm="host")
+    assert CertVerifier(cert_reg, 3, msm="host", pair="host").pair == "host"
+
+
+# -- the seams not ported yet name their current item ------------------------
+
+
+def test_unported_seams_name_their_item():
+    cfg = Config(n=4, coin="round_robin")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        Simulation(Config(n=4, coin="round_robin", lanes=True))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        Simulation(cfg).attach_mempools()
+    with pytest.raises(ValueError, match="Queue 1 item 4"):
+        Simulation(cfg, verifier="sharded")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        Simulation(Config(n=4, coin="round_robin", cert_span=2), verifier="cpu", cert=True)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        derive_epoch_keys(None, 4, 2, "dkg", 0)
