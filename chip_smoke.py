@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths once on one NVIDIA card.
 
-Two paths, each through the hand-written CUDA kernels, and then the
-consensus loop that runs them both. The main path is
+Two paths, each through the hand-written CUDA kernels, the round
+certificate lane around the second, and then the consensus loop that runs
+them all. The main path is
 round signature verification: a committee of n = 256 validators, 16 DAG
 rounds of 256 signed vertices (171 strong edges each), verified by
 ``CUDAVerifier.verify_rounds`` as one merged 4,096-signature dispatch.
@@ -63,11 +64,26 @@ signatures). The script:
    counters set to 0 before each and read after, one coin wave (sigma and
    leader byte-identical to the host coin), one wave with a corrupted
    share (the same ``filtered`` count, sigma and leader as the host coin),
-   and one certificate (``agg_sig`` byte-identical to the host group law,
-   and verified by the host pairing), each MSM with exactly 15 + log2 T
-   ``padd381_xx`` launches and one ``horner381``; the MSM's wall time and
-   its device split into tables, gather, tree and ``horner381``, launched
-   from the host and replayed as a CUDA graph (the card's time alone);
+   and one certificate (``agg_sig`` byte-identical to the host group law),
+   each MSM with exactly 15 + log2 T ``padd381_xx`` launches and one
+   ``horner381``; the certificate's aggregate check through the device
+   pairing (``ops/bls_pairing.py``: 172 pairs), its Miller product equal
+   to the host's exactly and both verdicts True, the check's wall split
+   into host set-up, line evaluation, cross-pair tree, schedule walk
+   (from its CUDA graph and eager), ``canonical`` and the host final
+   exponentiation, with its torch ops, kernels and device time (CUDA
+   profiler), peak memory and bound; forged certificates and the
+   Byzantine matrix of ``tests/test_cert_phase2.py`` on the card, verdicts
+   equal to the host's; the MSM's wall time and its device split into
+   tables, gather, tree and ``horner381``, launched from the host and
+   replayed as a CUDA graph (the card's time alone); then four round
+   certificates folded into a span (685 pairs): its aggregate
+   byte-identical to the host group law's with one 4-point MSM's
+   launches, ``verify_span`` True on the card and False for each of six
+   mutations; then ``sign_many`` over 173 rows on the ``native`` (C,
+   ctypes) and ``device`` lanes byte-identical to ``sign`` with no row on
+   a host route, beside the host lane, and the device ladder alone,
+   eager and replayed step by step from a CUDA graph;
 8. consensus phase: the port's ``Simulation`` runs DAG-Rider at n = 256
    (threshold-BLS coin, ``propose_empty``, ``gc_depth`` 24, two blocks a
    process) with one shared ``CUDAVerifier`` (coalesced, pipelined) and
@@ -87,10 +103,20 @@ signatures). The script:
    and wave-interval p50, the seam and MSM walls and each run's host
    split, and holds the comb kernels against their plain versions at the
    phase's dispatch width;
-9. prints ``{"kernels": [...]}`` (with each kernel's ``consensus_launches``;
-   the tree's row carries its M = 32 reading under ``at_m32``),
-   the card line again, and as the last line ``{"ok": true, "device":
-   {...}}``.
+9. consensus with certificates (``BASELINE.json`` config #4 whole): the
+   cluster of phase 8 with ``CERT_BLOCKS`` blocks a process and no empty
+   proposals, run until quiet, without and then with aggregate round
+   certificates (certificate MSM and pairing on the card): logs, leaders
+   and decided waves byte-identical, certificates assembled, signatures
+   saved, none rejected, fewer signatures verified, nothing contained, no
+   host route, launches exact; the wall, admitted and dispatched sigs/s,
+   wave-commit and wave-interval p50, pairing checks and their wall, and
+   the host split (certificate-share signing included);
+10. prints ``{"device_programs": [...]}`` (the pairing's and the ladder's
+   times and bounds), ``{"kernels": [...]}`` (with each kernel's
+   ``consensus_launches`` and ``consensus_cert_launches``; the tree's row
+   carries its M = 32 reading under ``at_m32``), the card line again, and
+   as the last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. Run it from the root of
 the repository: ``python3 chip_smoke.py`` (one card, no arguments).
@@ -128,6 +154,7 @@ STREAM_BUCKET = 512  # the streamed verify_rounds' chunk: 4,096 rows in 8 chunks
 CONS_N = 256  # the consensus phase's committee (BASELINE.json config #4)
 CONS_WAVES = 3  # every view decides at least this many waves
 CONS_MAX_RUNS = 40  # cap on Simulation.run calls before the phase fails
+CERT_BLOCKS = 14  # blocks a process submits in the certificate cell: 14 rounds, 3 waves
 
 # Published H100 SXM peak memory rate (NVIDIA data sheet), used for the
 # byte side of each kernel's bound.
@@ -506,12 +533,16 @@ def main() -> int:
     tree_row = next(r for r in report if r["name"] == "tree_sum_xyzt")
     tree_row["at_m32"] = comb8_phase(reg, rounds, mask, sample, oracle, imad_per_s)
 
-    report.extend(bls_phases(dev, imad_per_s))
+    bls_rows, programs = bls_phases(dev, imad_per_s)
+    report.extend(bls_rows)
 
     launches = consensus_phase()
+    cert_launches = consensus_cert_phase()
     for row in report:
         row["consensus_launches"] = launches.get(row["name"], 0)
+        row["consensus_cert_launches"] = cert_launches.get(row["name"], 0)
 
+    print(json.dumps({"device_programs": programs}))
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -776,6 +807,127 @@ def shared_coin_factory(coin_cls, keys, n: int, **coin_kw):
     return make, oracle
 
 
+def timed(fn, spent, key):
+    """``fn`` that adds its wall time to ``spent[key]``."""
+    def call(*args, **kw):
+        t = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            spent[key] += time.perf_counter() - t
+    return call
+
+
+def reset_launch_counters() -> None:
+    import torch
+
+    from dag_rider_tpu_torch.ops import cuda_field, cuda_group as CG, cuda_group381 as G
+
+    torch.cuda.synchronize()
+    CG.reset_launches()
+    G.reset_launches()
+    cuda_field.reset_launches()
+
+
+def read_launch_counters() -> dict:
+    import torch
+
+    from dag_rider_tpu_torch.ops import cuda_field, cuda_group as CG, cuda_group381 as G
+
+    torch.cuda.synchronize()
+    return {**CG.LAUNCHES, **G.LAUNCHES, **cuda_field.LAUNCHES}
+
+
+def drive_cluster(cfg, keys, signers, msm, *, verifier=None, cert=False, per_process=2,
+                  calls=None, budget=None, until_quiet=False):
+    """Build the port's cluster, run it, and split its host time: vertex
+    signing, coin share signing, the coin's combine with its pairing
+    check, the verify seam, and with certificates the certificate share
+    signing, aggregation and pairing checks; the rest is the pump itself.
+
+    ``verifier`` is the shared per-vertex verifier; with ``cert`` the
+    cluster builds the named "device" verifier (a shared
+    ``CUDAVerifier``) with the certificate MSM and pairing on the card.
+    The launch counters are set to 0 just before the first ``run`` call
+    (after the comb tables exist). The run loop: ``calls`` calls if given,
+    else until every view decided ``CONS_WAVES`` waves, or with
+    ``until_quiet`` until a call delivers nothing."""
+    from dag_rider_tpu_torch.consensus.coin import ThresholdCoin
+    from dag_rider_tpu_torch.consensus.simulator import Simulation
+
+    n = cfg.n
+    budget = n * (n - 1) if budget is None else budget
+    keys_spent = ["vertex signing", "coin share signing", "coin combine + pairing check"]
+    if cert:
+        keys_spent += ["certificate share signing", "certificate aggregation",
+                       "certificate pairing checks"]
+    spent = dict.fromkeys(keys_spent, 0.0)
+    make, oracle = shared_coin_factory(ThresholdCoin, keys, n, msm=msm)
+
+    def coin(i):
+        c = make(i)
+        c.my_share = timed(c.my_share, spent, "coin share signing")
+        c._try_aggregate = timed(c._try_aggregate, spent, "coin combine + pairing check")
+        return c
+
+    class Signer:
+        def __init__(self, inner):
+            self.sign_vertex = timed(inner.sign_vertex, spent, "vertex signing")
+
+    wrapped = [Signer(s) for s in signers]
+    cert_msm_sizes = []
+    if cert:
+        sim = Simulation(cfg, coin_factory=coin, verifier="device", cert=True,
+                         signer_factory=lambda i: wrapped[i])
+        cv = sim.cert_verifier
+        sim.processes[0].verifier.comb_tables()  # the build launches padd_xx
+        for p in sim.processes:
+            p.cert_signer.sign_digest = timed(p.cert_signer.sign_digest, spent,
+                                              "certificate share signing")
+        sum_points = cv._sum_points
+
+        def recorded_sum(points):
+            cert_msm_sizes.append(len(points))
+            return sum_points(points)
+
+        cv._sum_points = recorded_sum
+        cv.make_certificate = timed(cv.make_certificate, spent, "certificate aggregation")
+        cv._pairing_check = timed(cv._pairing_check, spent, "certificate pairing checks")
+    else:
+        sim = Simulation(cfg, coin_factory=coin, verifier_factory=lambda i: verifier,
+                         signer_factory=lambda i: wrapped[i])
+    monitor = sim.attach_invariant_monitor()
+    sim.submit_blocks(per_process=per_process)
+    msgs, done = 0, 0
+    reset_launch_counters()
+    t = time.perf_counter()
+    while True:
+        if calls is not None:
+            if done >= calls:
+                break
+        elif until_quiet:
+            if done >= CONS_MAX_RUNS:
+                break
+        elif min(p.decided_wave for p in sim.processes) >= CONS_WAVES or done >= CONS_MAX_RUNS:
+            break
+        got = sim.run(max_messages=budget)
+        msgs += got
+        done += 1
+        if until_quiet and calls is None and got == 0:
+            break
+    wall = time.perf_counter() - t
+    sim.check_agreement()
+    if monitor.observed == 0:
+        fail("consensus: the invariant monitor observed no delivery")
+    spent["verify seam"] = sum(p.metrics.verify_seconds_total for p in sim.processes)
+    spent["the rest (pump, admission, ordering)"] = wall - sum(spent.values())
+    return sim, oracle, msgs, done, wall, spent, cert_msm_sizes
+
+
+def split_line(spent) -> str:
+    return ", ".join(f"{k} {v:.2f} s" for k, v in spent.items())
+
+
 def consensus_phase() -> dict:
     """DAG-Rider at n = 256 through the port's ``Simulation``, with the
     shared ``CUDAVerifier`` (coalesced, pipelined) and card-MSM threshold
@@ -788,11 +940,8 @@ def consensus_phase() -> dict:
     import torch
 
     from dag_rider_tpu_torch import Config
-    from dag_rider_tpu_torch.consensus.coin import ThresholdCoin
-    from dag_rider_tpu_torch.consensus.simulator import Simulation
     from dag_rider_tpu_torch.crypto import threshold as th
-    from dag_rider_tpu_torch.ops import bls_msm, comb, cuda_field, cuda_group as CG
-    from dag_rider_tpu_torch.ops import cuda_group381 as G
+    from dag_rider_tpu_torch.ops import bls_msm, comb, cuda_group as CG
     from dag_rider_tpu_torch.verifier.base import KeyRegistry, VertexSigner
     from dag_rider_tpu_torch.verifier.cpu import CPUVerifier
     from dag_rider_tpu_torch.verifier.cuda import CUDAVerifier, unpack
@@ -818,63 +967,10 @@ def consensus_phase() -> dict:
         msm_walls.append(time.perf_counter() - t)
         return out
 
-    def timed(fn, spent, key):
-        def call(*args, **kw):
-            t = time.perf_counter()
-            try:
-                return fn(*args, **kw)
-            finally:
-                spent[key] += time.perf_counter() - t
-        return call
-
-    def drive(verifier, msm, calls=None):
-        """Build the cluster, run it, and split its host time: vertex
-        signing, coin share signing, the coin's combine with its pairing
-        check, the verify seam, and the rest (the pump itself)."""
-        spent = dict.fromkeys(("vertex signing", "coin share signing",
-                               "coin combine + pairing check"), 0.0)
-        make, oracle = shared_coin_factory(ThresholdCoin, keys, n, msm=msm)
-
-        def coin(i):
-            c = make(i)
-            c.my_share = timed(c.my_share, spent, "coin share signing")
-            c._try_aggregate = timed(c._try_aggregate, spent, "coin combine + pairing check")
-            return c
-
-        class Signer:
-            def __init__(self, inner):
-                self.sign_vertex = timed(inner.sign_vertex, spent, "vertex signing")
-
-        wrapped = [Signer(s) for s in signers]
-        sim = Simulation(cfg, coin_factory=coin, verifier_factory=lambda i: verifier,
-                         signer_factory=lambda i: wrapped[i])
-        monitor = sim.attach_invariant_monitor()
-        sim.submit_blocks(per_process=2)
-        msgs, done = 0, 0
-        t = time.perf_counter()
-        while (done < calls if calls is not None else
-               min(p.decided_wave for p in sim.processes) < CONS_WAVES and done < CONS_MAX_RUNS):
-            msgs += sim.run(max_messages=n * (n - 1))
-            done += 1
-        wall = time.perf_counter() - t
-        sim.check_agreement()
-        if monitor.observed == 0:
-            fail("consensus: the invariant monitor observed no delivery")
-        spent["verify seam"] = sum(p.metrics.verify_seconds_total for p in sim.processes)
-        spent["the rest (pump, admission, ordering)"] = wall - sum(spent.values())
-        return sim, oracle, msgs, done, wall, spent
-
-    def split(spent):
-        return ", ".join(f"{k} {v:.2f} s" for k, v in spent.items())
-
     # -- the card run: counters at 0 just before, read just after --------------
-    torch.cuda.synchronize()
-    CG.reset_launches()
-    G.reset_launches()
-    cuda_field.reset_launches()
-    sim, oracle, msgs, calls, wall, spent = drive(card_ver, card_msm)
-    torch.cuda.synchronize()
-    launches = {**CG.LAUNCHES, **G.LAUNCHES, **cuda_field.LAUNCHES}
+    sim, oracle, msgs, calls, wall, spent, _ = drive_cluster(cfg, keys, signers, card_msm,
+                                                             verifier=card_ver)
+    launches = read_launch_counters()
     pipe = sim._verify_pipe
     waves = min(p.decided_wave for p in sim.processes)
     if waves < CONS_WAVES:
@@ -908,12 +1004,12 @@ def consensus_phase() -> dict:
           f"{sum(msm_walls) * 1e3:.1f} ms (median {statistics.median(msm_walls) * 1e3:.2f} ms); "
           f"leaders {[th.leader_from_sigma(s, n) for _, s in sorted(oracle._sigma.items())]}")
     print(f"  launches {launches}; contained {contained}")
-    print(f"  host split: {split(spent)}; the card's work lies inside the verify seam and "
+    print(f"  host split: {split_line(spent)}; the card's work lies inside the verify seam and "
           f"the coin MSMs ({pipe.seam_s + sum(msm_walls):.3f} s of the {wall:.2f} s wall)")
 
     # -- the host-oracle run, the same sequence of run calls --------------------
-    host, host_oracle, host_msgs, _, host_wall, host_spent = drive(CPUVerifier(reg), "host",
-                                                                    calls)
+    host, host_oracle, host_msgs, _, host_wall, host_spent, _ = drive_cluster(
+        cfg, keys, signers, "host", verifier=CPUVerifier(reg), calls=calls)
     logs = [[(v.id.round, v.id.source, v.digest()) for v in d] for d in sim.deliveries]
     host_logs = [[(v.id.round, v.id.source, v.digest()) for v in d] for d in host.deliveries]
     if not any(logs):
@@ -928,7 +1024,7 @@ def consensus_phase() -> dict:
         fail("consensus: decided waves or message counts differ from the host oracle run")
     print(f"consensus (host oracle): logs of all {n} views, {len(oracle._sigma)} leaders and "
           f"decided waves byte-identical; wall {host_wall:.2f} s; host split: "
-          f"{split(host_spent)}")
+          f"{split_line(host_spent)}")
 
     # the path's kernels against their plain versions at its dispatch width:
     # one round of n signed vertices from the run
@@ -950,6 +1046,530 @@ def consensus_phase() -> dict:
     return launches
 
 
+def consensus_cert_phase() -> dict:
+    """``BASELINE.json`` config #4 whole: DAG-Rider at n = 256 with the
+    threshold-BLS coin and aggregate round certificates, the certificate
+    MSM and pairing on the card, against the same cluster without
+    certificates on the card. The construction is the one whose commit is
+    independent of certificates (``tests/test_cert.py:241-280``): every
+    process submits ``CERT_BLOCKS`` blocks and proposes no empty vertex,
+    and one ``run`` call drives the cluster until it is quiet (a run cut
+    by a message budget lets certificates change which vertices a
+    proposer has in hand, in the JAX package as here). Fails unless the
+    logs, leaders and decided waves are byte-identical, certificates were
+    assembled and saved signatures, none was rejected, fewer signatures
+    were verified, nothing was contained, no check took the host route,
+    and the launches are exactly those of the dispatches and MSMs that
+    ran. Returns the certificate run's launches per kernel."""
+    import torch
+
+    from dag_rider_tpu_torch import Config
+    from dag_rider_tpu_torch.crypto import bls12381 as bls, threshold as th
+    from dag_rider_tpu_torch.ops import bls_msm, bls_pairing
+    from dag_rider_tpu_torch.verifier.base import KeyRegistry, VertexSigner
+    from dag_rider_tpu_torch.verifier.cuda import CUDAVerifier
+
+    n = CONS_N
+    cfg = Config(n=n, coin="threshold_bls", propose_empty=False, gc_depth=24)
+    t_phase = time.perf_counter()
+    keys = th.ThresholdKeys.generate(n, cfg.f + 1)
+    reg, seeds = KeyRegistry.generate(n)
+    signers = [VertexSigner(s) for s in seeds]
+    card_ver = CUDAVerifier(reg)
+    card_ver.comb_tables()
+    torch.cuda.synchronize()
+    runs = {}
+    for name, cert in (("off", False), ("on", True)):
+        msm_sizes, msm_walls = [], []
+
+        def card_msm(scalars, points):
+            msm_sizes.append(len(points))
+            t = time.perf_counter()
+            out = bls_msm.msm(scalars, points)
+            msm_walls.append(time.perf_counter() - t)
+            return out
+
+        bls_pairing.reset_host_routed()
+        bls.reset_sign_host_rows()
+        sim, oracle, msgs, calls, wall, spent, cert_sizes = drive_cluster(
+            cfg, keys, signers, card_msm, verifier=None if cert else card_ver, cert=cert,
+            per_process=CERT_BLOCKS, budget=10**9, until_quiet=True)
+        launches = read_launch_counters()
+        pipe = sim._verify_pipe
+        rs = pipe.resilience_stats()
+        contained = {k: rs[k] for k in ("poisoned_windows", "quarantined", "quarantine_rejected")}
+        if any(contained.values()):
+            fail(f"consensus ({name} certificates): the pipeline contained faults {contained}")
+        want = {"tree_sum_xyzt": pipe.dispatches, "finish_check": pipe.dispatches,
+                "padd_xx": 0, "pow22523": 0, "field_mul": 0,
+                **msm_launches(msm_sizes + cert_sizes)}
+        if pipe.dispatches <= 0 or launches != want:
+            fail(f"consensus ({name} certificates): launches {launches}, want {want} "
+                 f"({pipe.dispatches} dispatches, coin MSMs of {msm_sizes} points, "
+                 f"certificate MSMs of {cert_sizes})")
+        if bls_pairing.HOST_ROUTED["checks"] or any(bls.SIGN_HOST_ROWS.values()):
+            fail(f"consensus ({name} certificates): host routes taken: pairing "
+                 f"{bls_pairing.HOST_ROUTED}, signing {bls.SIGN_HOST_ROWS}")
+        waves = min(p.decided_wave for p in sim.processes)
+        if waves < CONS_WAVES:
+            fail(f"consensus ({name} certificates): {waves} waves decided, want {CONS_WAVES}")
+        snaps = [p.metrics.snapshot() for p in sim.processes]
+        books = {k: sum(sn.get(k, 0) for sn in snaps)
+                 for k in ("certs_assembled", "certs_verified", "sigs_saved", "certs_rejected",
+                           "cert_rounds_degraded")}
+        verified = sum(p.metrics.verify_sigs_total for p in sim.processes)
+        admitted = verified + books["sigs_saved"]  # checked one by one or by a certificate
+        commit = [x for p in sim.processes for x in p.metrics.wave_commit_seconds]
+        interval = [x for p in sim.processes for x in p.metrics.wave_interval_seconds]
+        rounds = [p.round for p in sim.processes]
+        sizes = [len(d) for d in sim.deliveries]
+        runs[name] = {"sim": sim, "oracle": oracle, "verified": verified, "books": books,
+                      "launches": launches}
+        print(f"consensus with certificates {name} (card; n {n}, {CERT_BLOCKS} blocks a "
+              f"process, run until quiet): {calls} runs, rounds {min(rounds)}-{max(rounds)}, "
+              f"waves decided {waves}, vertices delivered per view {min(sizes)}-{max(sizes)}, "
+              f"{msgs} messages, wall {wall:.2f} s")
+        print(f"  signatures: {admitted} admitted ({verified} verified one by one, "
+              f"{books['sigs_saved']} by a certificate), {pipe.sigs_dispatched} dispatched in "
+              f"{pipe.dispatches} dispatches; {admitted / wall:.0f} admitted sigs/s of the wall, "
+              f"{pipe.sigs_dispatched / pipe.seam_s:.0f} dispatched sigs/s of the verify seam "
+              f"({pipe.seam_s:.3f} s)")
+        print(f"  wave commit p50 {statistics.median(commit) * 1e3:.3f} ms ({len(commit)} "
+              f"samples), wave interval p50 {statistics.median(interval) * 1e3:.1f} ms "
+              f"({len(interval)} samples); coin MSMs {len(msm_sizes)}, "
+              f"{sum(msm_walls) * 1e3:.1f} ms")
+        if cert:
+            cv = sim.cert_verifier
+            if (cv.msm, cv.pair, cv.device.type) != ("device", "device", "cuda"):
+                fail(f"consensus: the certificate verifier runs msm {cv.msm!r}, pair "
+                     f"{cv.pair!r} on {cv.device}; want both on the card")
+            print(f"  certificates: {books}; pairing checks {cv.stats['pairing_checks']} "
+                  f"({spent['certificate pairing checks']:.2f} s summed), verifier stats "
+                  f"{cv.stats}; certificate MSMs {len(cert_sizes)} of "
+                  f"{sorted(set(cert_sizes))} points; host certificate-share signing "
+                  f"{spent['certificate share signing']:.2f} s")
+        print(f"  launches {launches}; host split: {split_line(spent)}")
+    off, on = runs["off"], runs["on"]
+    logs = [[(v.id.round, v.id.source, v.digest()) for v in d] for d in on["sim"].deliveries]
+    ref = [[(v.id.round, v.id.source, v.digest()) for v in d] for d in off["sim"].deliveries]
+    if not any(ref) or logs != ref:
+        bad = [i for i, (a, b) in enumerate(zip(logs, ref)) if a != b]
+        fail(f"consensus: the certificate run's logs differ from the run without at views "
+             f"{bad[:10]}")
+    if on["oracle"]._sigma != off["oracle"]._sigma:
+        fail("consensus: the leaders differ between the runs with and without certificates")
+    if [p.decided_wave for p in on["sim"].processes] != [
+            p.decided_wave for p in off["sim"].processes]:
+        fail("consensus: decided waves differ between the runs with and without certificates")
+    b = on["books"]
+    if b["certs_assembled"] <= 0 or b["sigs_saved"] <= 0 or b["certs_rejected"] != 0:
+        fail(f"consensus: certificate books {b}; want assembled > 0, sigs_saved > 0, "
+             f"rejected 0")
+    if on["verified"] >= off["verified"]:
+        fail(f"consensus: {on['verified']} signatures verified with certificates, "
+             f"{off['verified']} without; want fewer")
+    print(f"consensus with certificates: logs of all {n} views, {len(off['oracle']._sigma)} "
+          f"leaders and decided waves byte-identical to the run without; signatures verified "
+          f"{on['verified']} against {off['verified']}; phase wall "
+          f"{time.perf_counter() - t_phase:.2f} s")
+    return on["launches"]
+
+
+class OpCount:
+    """Counts the aten ops dispatched inside a ``with`` block: each op
+    launches one or more kernels on the card (a CUDA graph's replay is
+    not an op; its kernels are counted where it was captured)."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        count = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                count.ops += 1
+                return func(*args, **(kwargs or {}))
+
+        self.ops = 0
+        self._mode = Mode()
+
+    def __enter__(self):
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._mode.__exit__(*exc)
+
+
+def device_kernels(fn):
+    """(kernels, device ms) the CUDA profiler saw while ``fn`` ran, or
+    (None, None) when it records no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not evs:
+            return None, None
+        return len(evs), sum(e.device_time_total for e in evs) / 1e3
+    except Exception as exc:  # a machine may refuse CUPTI tracing; then not measured
+        print(f"  profiler: no device trace ({type(exc).__name__}: {exc})")
+        return None, None
+
+
+def field381_imads() -> int:
+    """int32 multiply-adds of one ``field381.mul``: the 33 x 33 schoolbook
+    columns and the fold through FOLD's nonzero entries (carries left
+    out, like every bound here)."""
+    from dag_rider_tpu_torch.ops import field381 as F
+
+    return F.LIMBS * F.LIMBS + int((F.FOLD != 0).sum())
+
+
+def pairing_bound(pairs: int, imad_per_s: float):
+    """(least ms, bound_by, field products) of one device Miller product
+    over ``pairs`` pairs: the line evaluations (68 steps x 12 products a
+    pair), the cross-pair tree (pairs - 1 Fp12 products a step, 72 field
+    products each) and the schedule walk (131 Fp12 products); bytes: the
+    line coefficients and the points read once, the product written."""
+    products = 68 * pairs * 12 + (pairs - 1) * 68 * 72 + 131 * 72
+    bytes_moved = 4 * (2 * 68 * pairs * 12 * 33 + 2 * pairs * 33 + 12 * 33)
+    ms, by = bound(bytes_moved, products * field381_imads(), imad_per_s)
+    return ms, by, products
+
+
+def pairing_phase(dev, reg, cert_sks, cert, imad_per_s: float) -> dict:
+    """The certificate's aggregate check at n = 256 (171 signers, 172
+    pairs) through the device Miller product against the host's: the host
+    Miller product (the loop of ``bls12381.multi_pairing_check`` stopped
+    before the final exponentiation) must equal the device's exactly, and
+    both verdicts must be True; the check's wall split; then forged
+    certificates on the card and the Byzantine matrix of
+    ``tests/test_cert_phase2.py:148-206`` at its own committee of 4, each
+    verdict equal to the host pairing's. Returns the program's row."""
+    import dataclasses
+    import hashlib
+
+    import torch
+
+    from dag_rider_tpu_torch.crypto import bls12381 as bls
+    from dag_rider_tpu_torch.ops import bls_pairing as BP, field381 as F
+    from dag_rider_tpu_torch.verifier.base import CertSigner, KeyRegistry
+    from dag_rider_tpu_torch.verifier.cert import CertVerifier
+
+    BP.reset_host_routed()
+    cv = CertVerifier(reg, CERT_QUORUM)  # the port's defaults: MSM and pairing on the card
+    if (cv.msm, cv.pair, cv.device.type) != ("device", "device", "cuda"):
+        fail(f"CertVerifier defaults: msm {cv.msm!r}, pair {cv.pair!r} on {cv.device}")
+
+    def sync_s(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    # host set-up, cold (hash and G2 line caches emptied) and warm
+    bls.hash_g1_cache_clear()
+    bls._G2_PRECOMP.clear()
+    BP._SLOT_CACHE.clear()
+    pairs, t_pairs = sync_s(lambda: cv._cert_pairs(cert))
+    host, t_cold = sync_s(lambda: BP.marshal(pairs))
+    host, t_warm = sync_s(lambda: BP.marshal(pairs))
+    xp, yp, slots = host
+    n_pairs = xp.shape[0]
+    # the device split, stage by stage (each stage's wall, launches included)
+    tensors, t_copy = sync_s(lambda: [torch.from_numpy(a).to(dev) for a in (xp, yp, *slots)])
+    xp_d, yp_d, dl, dc, al, ac = tensors
+    evals, t_eval = sync_s(lambda: torch.cat([BP.eval_lines(dl, dc, xp_d, yp_d),
+                                              BP.eval_lines(al, ac, xp_d, yp_d)]))
+    prod, t_tree = sync_s(lambda: BP.tree_product(evals))
+    dprod, aprod = prod[:63], prod[63:]
+    canon, t_walk_cold = sync_s(lambda: BP.walk_on_device(dprod, aprod))  # captures the graph
+    canon, t_walk = sync_s(lambda: BP.walk_on_device(dprod, aprod))
+    eager, t_walk_eager = sync_s(lambda: BP.walk(dprod, aprod))
+    acc = eager  # a canonical Fp12 element: canonical of it is itself
+    _, t_canon = sync_s(lambda: F.canonical(acc))
+    if not torch.equal(canon, eager):
+        fail("pairing: the walk replayed from its CUDA graph differs from the eager walk")
+    device_fm = BP.to_host_fp12(canon)
+    host_fm, t_host_miller = sync_s(lambda: BP.host_miller_product(pairs))
+    if device_fm != host_fm:
+        fail("pairing: the device Miller product differs from the host's")
+    ok_dev, t_fexp = sync_s(lambda: bls.final_exponentiation(device_fm) == bls.FP12_ONE)
+    ok_host = bls.final_exponentiation(host_fm) == bls.FP12_ONE
+    if not (ok_dev and ok_host):
+        fail(f"pairing: the certificate's verdicts are device {ok_dev}, host {ok_host}")
+    # the whole check through the verifier, warm (memo-free verifiers)
+    walls = []
+    for _ in range(3):
+        fresh = CertVerifier(reg, CERT_QUORUM)
+        ok, w = sync_s(lambda: fresh.verify_certificate(cert))
+        walls.append(w)
+        if not ok:
+            fail("pairing: the certificate does not verify through the card pairing")
+    with OpCount() as ops:
+        BP.multi_pairing_check(pairs, dev)
+    with OpCount() as walk_ops:
+        BP.walk(dprod, aprod)
+    kernels, busy_ms = device_kernels(lambda: BP.multi_pairing_check(pairs, dev))
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    BP.multi_pairing_check(pairs, dev)
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    b_ms, b_by, products = pairing_bound(n_pairs, imad_per_s)
+    wall = statistics.median(walls)
+    print(f"pairing (certificate, {n_pairs} pairs): device Miller product equal to the host's, "
+          f"both verdicts True; check wall median {wall * 1e3:.1f} ms (runs "
+          f"{[round(w * 1e3, 1) for w in walls]} ms) against the host's Miller product "
+          f"{t_host_miller:.2f} s + final exponentiation {t_fexp:.3f} s")
+    print(f"  split: host set-up hash_to_g1 {t_pairs:.3f} s, _slot_limbs cold {t_cold:.3f} s / "
+          f"warm {t_warm * 1e3:.1f} ms; copies {t_copy * 1e3:.2f} ms, line evaluation "
+          f"{t_eval * 1e3:.2f} ms, cross-pair tree {t_tree * 1e3:.2f} ms, schedule walk with "
+          f"canonical {t_walk * 1e3:.2f} ms from its CUDA graph (capture {t_walk_cold:.2f} s, "
+          f"eager {t_walk_eager * 1e3:.2f} ms), canonical alone {t_canon * 1e3:.2f} ms; host final "
+          f"exponentiation {t_fexp * 1e3:.1f} ms")
+    print(f"  torch ops launched from the host per check {ops.ops} (the walk's "
+          f"{walk_ops.ops} replay from one CUDA graph); kernels on the card per check "
+          f"{kernels if kernels is not None else 'not measured'}, their device time "
+          f"{f'{busy_ms:.2f} ms' if busy_ms is not None else 'not measured'}; peak device "
+          f"memory {peak / 2**20:.0f} MiB over the resident; {products} field products, bound "
+          f"{b_ms:.4f} ms by {b_by}")
+    # forged certificates, on the card only: one digest substituted, and
+    # another round's aggregate over the same signers
+    other_digests = [hashlib.sha512(b"round-8|" + i.to_bytes(4, "little")).digest()
+                     for i in cert.signers]
+    other_sigs = bls.sign_many([cert_sks[i] for i in cert.signers], other_digests,
+                               backend="native")
+    other = cv.make_certificate(8, list(zip(cert.signers, other_digests, other_sigs)))
+    forged = [dataclasses.replace(cert, digests=cert.digests[:3] + (bytes(64),)
+                                  + cert.digests[4:]),
+              dataclasses.replace(cert, agg_sig=other.agg_sig)]
+    for i, c in enumerate(forged):
+        if CertVerifier(reg, CERT_QUORUM).verify_certificate(c):
+            fail(f"pairing: forged certificate {i} verified on the card")
+    # the Byzantine matrix at its own committee of 4
+    sreg, _, ssks = KeyRegistry.generate_with_cert(4)
+
+    def small_entries(tag):
+        ds = [bytes([i]) * 16 + tag.ljust(16, b".") for i in range(4)]
+        return [(i, d, CertSigner(sk).sign_digest(d)) for i, (sk, d) in enumerate(zip(ssks, ds))]
+
+    host_v = CertVerifier(sreg, quorum=3, msm="host", pair="host")
+    full = host_v.make_certificate(3, small_entries(b"byz"))
+    q = host_v.make_certificate(4, small_entries(b"byq")[:3])
+    matrix = [full, q,
+              dataclasses.replace(q, signers=(0, 1, 3)), dataclasses.replace(q, signers=(0, 1, 1)),
+              dataclasses.replace(q, signers=(0, 1, 9)), dataclasses.replace(q, signers=(0, 1)),
+              dataclasses.replace(q, digests=(q.digests[0], b"stale-digest!".ljust(32, b"?"),
+                                              q.digests[2])),
+              dataclasses.replace(q, agg_sig=bls.g1_compress(bls.g1_mul(0xBAD))),
+              dataclasses.replace(q, agg_sig=b"\xff" * 48)]
+    card_v = CertVerifier(sreg, quorum=3)
+    verdicts = [card_v.verify_certificate(c) for c in matrix]
+    host_verdicts = [host_v.verify_certificate(c) for c in matrix]
+    if verdicts != host_verdicts or verdicts[:2] != [True, True] or any(verdicts[2:]):
+        fail(f"pairing: Byzantine matrix verdicts {verdicts} on the card, {host_verdicts} host")
+    if BP.HOST_ROUTED["checks"]:
+        fail(f"pairing: {BP.HOST_ROUTED['checks']} checks took the host route")
+    print(f"  forged certificates (a substituted digest, another round's aggregate) rejected on "
+          f"the card; Byzantine matrix (n 4, {len(matrix)} certificates) verdicts {verdicts} equal "
+          f"to the host's; pairing_checks {card_v.stats['pairing_checks']}; host-routed checks 0")
+    return {"name": "bls_pairing.multi_pairing_check", "replaces":
+            "dag_rider_tpu/ops/bls_pairing.py:257 (jnp, no pallas_call)",
+            "pairs": n_pairs, "wall_ms": wall * 1e3, "eval_ms": t_eval * 1e3,
+            "tree_ms": t_tree * 1e3, "walk_graph_ms": t_walk * 1e3,
+            "walk_eager_ms": t_walk_eager * 1e3, "host_setup_cold_s": t_pairs + t_cold,
+            "final_exp_ms": t_fexp * 1e3, "host_miller_s": t_host_miller,
+            "torch_ops": ops.ops, "kernels": kernels, "device_ms": busy_ms,
+            "peak_bytes": peak, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def spans_phase(dev, reg, cert_sks) -> dict:
+    """Four consecutive round certificates at n = 256 made on the card and
+    folded into one span: the span aggregate byte-identical to the host
+    group law's, with exactly one 4-point MSM's launches; ``verify_span``
+    on the card True, and False for each mutation of
+    ``tests/test_cert_phase2.py:296-334``. Returns the span MSM's
+    launches."""
+    import dataclasses
+    import hashlib
+    import random
+
+    import torch
+
+    from dag_rider_tpu_torch.crypto import bls12381 as bls
+    from dag_rider_tpu_torch.ops import bls_pairing as BP, cuda_group381 as G
+    from dag_rider_tpu_torch.verifier.cert import CertVerifier
+
+    cv = CertVerifier(reg, CERT_QUORUM)
+    rng = random.Random(SEED + 4)
+    certs = []
+    t0 = time.perf_counter()
+    for r in range(5, 9):
+        signers = sorted(rng.sample(range(BLS_N), CERT_QUORUM))
+        digests = [hashlib.sha512(b"round-%d|" % r + i.to_bytes(4, "little")).digest()
+                   for i in signers]
+        sigs = bls.sign_many([cert_sks[i] for i in signers], digests, backend="native")
+        certs.append(cv.make_certificate(r, list(zip(signers, digests, sigs))))
+    t_certs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    G.reset_launches()
+    span, t_span = None, time.perf_counter()
+    span = cv.make_span(5, certs)
+    torch.cuda.synchronize()
+    t_span = time.perf_counter() - t_span
+    launches = dict(G.LAUNCHES)
+    host = CertVerifier(reg, CERT_QUORUM, msm="host", pair="host").make_span(5, certs)
+    if span is None or span != host:
+        fail("span: the span certificate differs from the host group law's")
+    if launches != msm_launches([4]):
+        fail(f"span: make_span launched {launches}, want one 4-point MSM's {msm_launches([4])}")
+    pairs = 1 + sum(len(s) for s in span.signers)
+    walls = []
+    for _ in range(2):
+        fresh = CertVerifier(reg, CERT_QUORUM)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ok = fresh.verify_span(span)
+        walls.append(time.perf_counter() - t)
+        if not ok:
+            fail("span: the span does not verify on the card")
+    # the warm check's split: hashing the 684 digests (the hash cache holds
+    # 256, so a span's digests miss it), then the pairing check alone
+    t = time.perf_counter()
+    hashed = [bls.hash_to_g1(d) for ds in span.digests for d in ds]
+    t_hash = time.perf_counter() - t
+    span_pairs = [(bls.g1_decompress(span.agg_sig), bls.g2_neg(bls.G2_GEN))] + [
+        (h, reg.bls_key_of(src)) for h, src in zip(hashed, (x for s in span.signers for x in s))]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ok = BP.multi_pairing_check(span_pairs, dev)
+    torch.cuda.synchronize()
+    t_check = time.perf_counter() - t
+    if not ok:
+        fail("span: the span's pairs do not check on the card")
+    mutations = [
+        dataclasses.replace(span, agg_sig=bls.g1_compress(bls.g1_mul(0xBAD))),
+        dataclasses.replace(span, agg_sig=b"\xff" * 48),
+        dataclasses.replace(span, digests=(span.digests[0], (b"swapped!".ljust(32, b"?"),)
+                                           + span.digests[1][1:]) + span.digests[2:]),
+        dataclasses.replace(span, signers=(span.signers[0][:2],) + span.signers[1:],
+                            digests=(span.digests[0][:2],) + span.digests[1:]),
+        dataclasses.replace(span, signers=(span.signers[0], span.signers[1][:-1] + (BLS_N + 3,))
+                            + span.signers[2:]),
+        dataclasses.replace(span, first_round=0),
+    ]
+    mwalls = []
+    for i, m in enumerate(mutations):
+        t = time.perf_counter()
+        if CertVerifier(reg, CERT_QUORUM).verify_span(m):
+            fail(f"span: mutation {i} verified on the card")
+        mwalls.append(time.perf_counter() - t)
+    if BP.HOST_ROUTED["checks"]:
+        fail(f"span: {BP.HOST_ROUTED['checks']} checks took the host route")
+    print(f"span (4 rounds, {pairs} pairs): agg_sig {span.agg_sig.hex()[:16]}... equal to the host "
+          f"group law; make_span {t_span * 1e3:.1f} ms, launches {launches}; verify_span on the "
+          f"card True, wall {[round(w, 3) for w in walls]} s (cold, warm); of a warm check: "
+          f"hash_to_g1 of the digests {t_hash:.3f} s, the pairing check {t_check:.3f} s; "
+          f"{len(mutations)} mutations rejected ({[round(w, 3) for w in mwalls]} s); 4 "
+          f"certificates made in {t_certs:.2f} s")
+    return launches
+
+
+def signing_phase(dev, cert_sks, imad_per_s: float) -> dict:
+    """``sign_many`` over 171 digests with distinct keys, plus rows with
+    sk = 0 mod r, on the device lane (the card) and the native lane (the
+    ctypes C library), each byte-for-byte ``[sign(sk, m) ...]``; the host
+    routes counted and 0; each lane's wall beside the host's. Returns the
+    device ladder's row."""
+    import hashlib
+
+    import torch
+
+    from dag_rider_tpu_torch.crypto import bls12381 as bls
+    from dag_rider_tpu_torch.ops import bls_g1, field381 as F, native381
+
+    t0 = time.perf_counter()
+    if native381.load() is None:
+        fail(f"the native381 library did not build from {native381.SRC}")
+    print(f"native381 library: {native381.library_path().name}, gcc "
+          f"{native381.last_build_s:.2f} s, load {time.perf_counter() - t0:.2f} s")
+    sks = [cert_sks[i] for i in range(CERT_QUORUM)] + [bls.R, 2 * bls.R]
+    msgs = [hashlib.sha512(b"sign|" + i.to_bytes(4, "little")).digest()[:32]
+            for i in range(len(sks))]
+    domain = b"dagrider-coin-v1"
+    retries = sum(1 for m in msgs if pow((bls._hash_candidate_x(m, domain, 0) ** 3 + 4) % bls.P,
+                                         (bls.P - 1) // 2, bls.P) != 1)
+    if not retries:
+        fail("signing: no row needs a second hash-to-curve candidate")
+    want = [bls.sign(sk, m) for sk, m in zip(sks, msgs)]
+    walls = {}
+    for lane in ("host", "native", "device", "device"):
+        bls.hash_g1_cache_clear()
+        bls.reset_sign_host_rows()
+        native381.reset_host_rows()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = bls.sign_many(sks, msgs, backend=lane)
+        torch.cuda.synchronize()
+        w = time.perf_counter() - t
+        walls[lane if lane not in walls else "device warm"] = w
+        if got != want:
+            bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+            fail(f"signing: the {lane} lane differs from sign at rows {bad[:10]}")
+        if any(bls.SIGN_HOST_ROWS.values()) or any(native381.HOST_ROWS.values()):
+            fail(f"signing: the {lane} lane took host routes {bls.SIGN_HOST_ROWS}, "
+                 f"{native381.HOST_ROWS}")
+    # the device ladder alone at the lane's rows and width, eager and replayed
+    rows = [(sk % bls.R) * bls._H1_COFACTOR for sk in sks if sk % bls.R]
+    pts = [bls.hash_to_g1(m) for sk, m in zip(sks, msgs) if sk % bls.R]
+    bits, nbits = bls_g1._bit_columns(rows)
+    px = torch.from_numpy(F.to_limbs_bulk([p[0] for p in pts])).to(dev)
+    py = torch.from_numpy(F.to_limbs_bulk([p[1] for p in pts])).to(dev)
+    bd = torch.from_numpy(bits).to(dev)
+    times = {}
+    outs = {}
+    for graph in (False, True):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        outs[graph] = bls_g1.ladder(px, py, bd, graph=graph)
+        torch.cuda.synchronize()
+        times[graph] = time.perf_counter() - t
+    if not all(torch.equal(a, b) for a, b in zip(outs[False], outs[True])):
+        fail("signing: the ladder replayed from its CUDA graph differs from the eager ladder")
+    with OpCount() as step_ops:
+        one = F.const("ONE", dev).expand(len(rows), F.LIMBS)
+        state = torch.zeros((3, len(rows), F.LIMBS), dtype=torch.int32, device=dev)
+        bls_g1.ladder_step(state, torch.ones(len(rows), dtype=torch.bool, device=dev),
+                           px, py, one, bd[0])
+    n_rows = len(rows)
+    inv = (bls.P - 2).bit_length() - 1 + bin(bls.P - 2).count("1") - 1 + 4
+    products = nbits * n_rows * 18 + n_rows * inv
+    imads = products * field381_imads() + nbits * n_rows * 9 * F.LIMBS
+    # bytes: the points read, the bit columns (one byte a bit), the affine
+    # results and the two masks written
+    b_ms, b_by = bound(n_rows * (4 * 4 * F.LIMBS + nbits + 2), imads, imad_per_s)
+    print(f"signing ({len(sks)} rows: {CERT_QUORUM} distinct keys, 2 with sk = 0 mod r; {retries} "
+          f"rows need a second hash candidate): device and native lanes byte-identical to sign; "
+          f"host routes 0; wall host {walls['host']:.3f} s, native {walls['native']:.3f} s, "
+          f"device {walls['device']:.3f} s (cold, the step graph captured) / "
+          f"{walls['device warm']:.3f} s (warm)")
+    print(f"  device ladder alone ({n_rows} rows, {nbits} bit columns): eager "
+          f"{times[False]:.3f} s, replayed step by step from a CUDA graph {times[True]:.3f} s; "
+          f"{step_ops.ops} torch ops a step; {products} field products, bound {b_ms:.4f} ms "
+          f"by {b_by}")
+    return {"name": "bls_g1.g1_ladder_batch", "replaces":
+            "dag_rider_tpu/ops/bls_g1.py:175 (jnp lax.scan, no pallas_call)",
+            "rows": n_rows, "bit_columns": nbits, "ladder_eager_s": times[False],
+            "ladder_graph_s": times[True], "step_torch_ops": step_ops.ops,
+            "sign_many_s": {k: v for k, v in walls.items()}, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
+
+
 def msm_launches(sizes) -> dict:
     """Kernel launches of MSMs over ``sizes`` points: per MSM over T padded
     points, 15 table steps and the log2 T tree levels through padd381_xx,
@@ -960,9 +1580,11 @@ def msm_launches(sizes) -> dict:
     return {"padd381_xx": sum(15 + t.bit_length() - 1 for t in ts), "horner381": len(ts)}
 
 
-def bls_phases(dev, imad_per_s: float) -> list:
+def bls_phases(dev, imad_per_s: float):
     """The BLS12-381 MSM path at n = 256 through ``padd381_xx`` and
-    ``horner381``; returns their report rows. Fails on any mismatch."""
+    ``horner381``, then the certificate's device pairing, the span and the
+    signing lanes; returns the two kernels' report rows and the device
+    programs' rows. Fails on any mismatch."""
     import dataclasses
     import hashlib
     import random
@@ -1167,16 +1789,12 @@ def bls_phases(dev, imad_per_s: float) -> list:
         fail("certificate agg_sig differs from the host group law's")
     if cert_launches != msm_launches([CERT_QUORUM]):
         fail(f"certificate MSM launches {cert_launches}, want {msm_launches([CERT_QUORUM])}")
-    t0 = time.perf_counter()
-    ok = cv.verify_certificate(cert)
-    verify_s = time.perf_counter() - t0
-    if not ok:
-        fail("the card-aggregated certificate does not verify")
     if cv.verify_certificate(dataclasses.replace(cert, signers=cert.signers[:-1])):
         fail("a certificate below quorum verified")
     print(f"certificate (n {BLS_N}, quorum {CERT_QUORUM}): agg_sig {cert.agg_sig.hex()[:16]}... "
           f"equal to the host group law; launches {cert_launches}; "
-          f"make_certificate {make_wall * 1e3:.1f} ms; host pairing verify {verify_s:.2f} s")
+          f"make_certificate {make_wall * 1e3:.1f} ms")
+    programs = [pairing_phase(dev, reg, cert_sks, cert, imad_per_s)]
     for r in (row, hrow):
         r["launches"] = sum(d[r["name"]] for d in (coin_launches, byz_launches, cert_launches))
     print(f"bls path launches: coin {coin_launches}, Byzantine coin wave {byz_launches}, "
@@ -1207,7 +1825,11 @@ def bls_phases(dev, imad_per_s: float) -> list:
               f"launched from the host / in a CUDA graph): "
               + ", ".join(f"{k} {split[k]:.3f} / {gsplit[k]:.3f} ms" for k in parts)
               + f"; sum {sum(split.values()):.3f} / {sum(gsplit.values()):.3f} ms")
-    return [row, hrow]
+    span_launches = spans_phase(dev, reg, cert_sks)
+    for r in (row, hrow):
+        r["launches"] += span_launches[r["name"]]
+    programs.append(signing_phase(dev, cert_sks, imad_per_s))
+    return [row, hrow], programs
 
 
 if __name__ == "__main__":

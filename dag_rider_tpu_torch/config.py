@@ -197,6 +197,11 @@ def _raw(name: str) -> str:
     return os.environ.get(name, "").strip()
 
 
+def env_is_set(name: str) -> bool:
+    """Whether the environment sets the registered knob (non-empty)."""
+    return bool(_raw(name))
+
+
 def env_flag(name: str, default: Optional[bool] = None) -> bool:
     """Registered boolean knob; empty/unset resolves to the registry
     default. Anything but 0/false/no/off (case-insensitive) is on."""

@@ -30,7 +30,7 @@ class Simulation:
     """Build-and-run helper for an n-node in-process cluster.
 
     ``device`` is where the named "device" verifier and the certificate
-    MSM run: ``cuda`` unless the caller passes ``"cpu"`` (the kernels'
+    MSM and pairing run: ``cuda`` unless the caller passes ``"cpu"`` (the kernels'
     plain torch versions, as the tests do)."""
 
     def __init__(
@@ -215,8 +215,10 @@ class Simulation:
 
         "device" is :class:`~dag_rider_tpu_torch.verifier.cuda.CUDAVerifier`
         on ``device`` (``cuda`` unless the caller passes ``"cpu"``, the
-        plain torch path), and the certificate verifier's MSM runs there
-        too. ``cert_msm`` None is the port's default, "device"."""
+        plain torch path), and the certificate verifier's MSM and pairing
+        run there too. ``cert_msm`` None is the port's default, "device";
+        ``cert_pair`` None reads DAGRIDER_CERT_PAIR when it is set and is
+        "device" otherwise."""
         from dag_rider_tpu_torch.verifier.base import (
             CertSigner,
             KeyRegistry,
@@ -233,11 +235,6 @@ class Simulation:
         cert_signers = None
         cert_verifier = None
         if with_cert:
-            if self.cfg.cert_span:
-                raise NotImplementedError(
-                    "span certificates (cert_span > 0) are not ported yet "
-                    "(ROADMAP Queue 1 item 5)"
-                )
             # same seed prefix as generate(): the ed25519 keys are
             # identical, so cert-on and cert-off runs verify the exact
             # same vertex signatures

@@ -2,8 +2,9 @@
 
 The port's copy of ``dag_rider_tpu/crypto/bls12381.py`` (host code, no
 array library): keys, signatures, compressed points and pairing verdicts
-are byte-identical to the JAX package's. ``sign_many`` keeps only its host
-path.
+are byte-identical to the JAX package's. ``sign_many``'s ``native`` lane
+runs ``ops/native381.py`` (a ctypes C library) and its ``device`` lane
+``ops/bls_g1.py`` on the card.
 
 The reference's common coin is a hardcoded stub returning 1
 (``process/process.go:390-392``); its TODO names the real design: "PKI and
@@ -33,6 +34,7 @@ host-side, exactly as ordering decisions do.
 from __future__ import annotations
 
 import collections
+import functools
 import hashlib
 from typing import List, Optional, Sequence, Tuple
 
@@ -981,17 +983,105 @@ def sign(sk: int, msg: bytes) -> bytes:
     return g1_compress(g1_mul(sk, hash_to_g1(msg)))
 
 
+#: rows that a batched ``sign_many`` lane handed to the host ``sign``, by
+#: reason, since :func:`reset_sign_host_rows`: "unavailable" (the native
+#: library is missing) and "resigned" (a backend-flagged row, or [h1]H(m)
+#: the identity, where the oracle tries the next hash candidate)
+SIGN_HOST_ROWS = {"unavailable": 0, "resigned": 0}
+
+
+def reset_sign_host_rows() -> None:
+    for k in SIGN_HOST_ROWS:
+        SIGN_HOST_ROWS[k] = 0
+
+
+def _sign_many_via(
+    pow_p_batch,
+    ladder_batch,
+    sks: Sequence[int],
+    msgs: Sequence[bytes],
+    domain: bytes,
+) -> List[bytes]:
+    """Round-batched signing over two backend primitives.
+
+    The merged-scalar trick: the oracle computes [sk % R]([h1]candidate)
+    in two stages (cofactor clearing inside hash_to_g1, then the signing
+    mul); one ladder over the merged scalar (sk % R) * h1 gives the same
+    group element in a single pass — [ab]Q == [a]([b]Q) in any abelian
+    group, and both ladders are exact mod-p arithmetic. [h1]candidate is
+    the identity iff the merged result is (sk % R is nonzero and [h1]Q
+    has order r or 1), which is exactly the case where the oracle retries
+    the next hash candidate — those rows (and any backend-flagged rows)
+    fall back to the sequential host `sign`, keeping byte-identity on
+    every input; :data:`SIGN_HOST_ROWS` counts them.
+    """
+    out: List[Optional[bytes]] = [None] * len(msgs)
+    scalars: List[int] = []
+    points: List[Tuple[int, int]] = []
+    idxs: List[int] = []
+    pend: List[list] = []  # [out_index, sk_mod_r, msg, ctr]
+    for i, (sk, msg) in enumerate(zip(sks, msgs)):
+        skr = sk % R
+        if skr == 0:
+            out[i] = g1_compress(None)
+            continue
+        hit = _h2g1_lookup(msg, domain)
+        if hit is not None:
+            scalars.append(skr)
+            points.append(hit)
+            idxs.append(i)
+        else:
+            pend.append([i, skr, msg, 0])
+    # try-and-increment with the square-root power map batched: every
+    # unresolved row advances its counter in lockstep (~2 rounds expected;
+    # each candidate is square with probability 1/2)
+    while pend:
+        xs = [_hash_candidate_x(m, domain, ctr) for (_, _, m, ctr) in pend]
+        y2s = [(x * x * x + 4) % P for x in xs]
+        ys = pow_p_batch(y2s, (P + 1) // 4)
+        nxt = []
+        for row, x, y2, y in zip(pend, xs, y2s, ys):
+            if y * y % P == y2:
+                y = min(y, P - y)
+                scalars.append(row[1] * _H1_COFACTOR)
+                points.append((x, y))
+                idxs.append(row[0])
+            else:
+                row[3] += 1
+                nxt.append(row)
+        pend = nxt
+    if scalars:
+        results, fallback = ladder_batch(scalars, points)
+    else:
+        results, fallback = [], []
+    for i, res, fb in zip(idxs, results, fallback):
+        if fb or res is None:
+            SIGN_HOST_ROWS["resigned"] += 1
+            out[i] = g1_compress(g1_mul(sks[i], hash_to_g1(msgs[i], domain)))
+        else:
+            out[i] = g1_compress(res)
+    return out  # type: ignore[return-value]
+
+
 def sign_many(
     sks: Sequence[int],
     msgs: Sequence[bytes],
     domain: bytes = b"dagrider-coin-v1",
     backend: Optional[str] = None,
+    device=None,
 ) -> List[bytes]:
     """Batched `sign` — byte-for-byte [sign(sk, m) for sk, m in zip(...)].
 
-    Backend (explicit arg beats the DAGRIDER_CERT_SIGN knob): ``host``, the
-    sequential oracle (default). The JAX package's ``native`` (cffi) and
-    ``device`` (``ops/bls_g1.py``) lanes are not ported yet and raise.
+    Backend (explicit arg beats the DAGRIDER_CERT_SIGN knob):
+
+    - ``host``: the sequential oracle (the knob's default);
+    - ``native``: the C Montgomery kernels of ``ops/native381.py``
+      (ctypes); the host oracle signs when the library is unavailable,
+      counted in :data:`SIGN_HOST_ROWS`;
+    - ``device``: the field381 limb lane of ``ops/bls_g1.py`` on
+      ``device``, ``cuda`` unless the caller passes ``"cpu"`` (the same
+      torch ops on the CPU); raises when CUDA is asked for and there is no
+      card.
     """
     sks = list(sks)
     msgs = list(msgs)
@@ -1001,14 +1091,32 @@ def sign_many(
         from dag_rider_tpu_torch import config
 
         backend = config.env_choice("DAGRIDER_CERT_SIGN")
-    if backend in ("native", "device"):
-        raise NotImplementedError(
-            f"sign_many backend {backend!r} is not ported yet (ROADMAP Queue 1 "
-            "item 6: the signing lanes); use \"host\""
-        )
-    if backend != "host":
+    if backend not in ("host", "native", "device"):
         raise ValueError(
             f'sign_many backend must be "host", "native" or "device", got {backend!r}'
+        )
+    if backend == "native" and msgs:
+        from dag_rider_tpu_torch.ops import native381
+
+        if native381.available():
+            return _sign_many_via(
+                native381.pow_p_batch,
+                native381.g1_ladder_batch,
+                sks,
+                msgs,
+                domain,
+            )
+        SIGN_HOST_ROWS["unavailable"] += len(msgs)
+    if backend == "device" and msgs:
+        from dag_rider_tpu_torch.ops import bls_g1, bls_msm
+
+        dev = bls_msm.resolve_device(device)
+        return _sign_many_via(
+            functools.partial(bls_g1.pow_p_batch, device=dev),
+            functools.partial(bls_g1.g1_ladder_batch, device=dev),
+            sks,
+            msgs,
+            domain,
         )
     return [
         g1_compress(g1_mul(sk, hash_to_g1(m, domain)))

@@ -25,7 +25,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -48,40 +48,44 @@ ROWS_HASHED: Dict[str, int] = {"native": 0, "hashlib": 0}
 _rows_lock = threading.Lock()  # row blocks count from worker threads
 
 
-def library_path() -> Path:
-    """Where the library built from the current source lives."""
+def library_file(stem: str, src: Path, flags: Sequence[str]) -> Path:
+    """``build/<stem>-<hash>.so``, the hash over the flags and the source."""
     h = hashlib.sha256()
-    h.update(" ".join(GXX_FLAGS).encode())
-    h.update(SRC.read_bytes())
-    return BUILD_DIR / f"libdagrider_native-{h.hexdigest()[:16]}.so"
+    h.update(" ".join(flags).encode())
+    h.update(src.read_bytes())
+    return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
 
 
-def _build(so: Path) -> bool:
-    """Compile to a temp file, then atomically rename into place — two
-    processes racing a cold cache must never load a half-written object."""
-    global last_build_s
+def compile_library(cmd: Sequence[str], src: Path, so: Path) -> Tuple[bool, float]:
+    """Run ``cmd -o <tmp> src``, then rename the output into ``so``
+    atomically — two processes racing a cold cache must never load a
+    half-written object. Returns (built, seconds)."""
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
     try:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         proc = subprocess.run(
-            ["g++", *GXX_FLAGS, "-o", str(tmp), str(SRC)],
+            [*cmd, "-o", str(tmp), str(src)],
             capture_output=True,
             timeout=120,
         )
         if proc.returncode != 0 or not tmp.exists():
-            return False
+            return False, time.perf_counter() - t0
         os.replace(tmp, so)
-        return True
+        return True, time.perf_counter() - t0
     except (OSError, subprocess.TimeoutExpired):
-        return False
+        return False, time.perf_counter() - t0
     finally:
-        last_build_s = time.perf_counter() - t0
         if tmp.exists():
             try:
                 tmp.unlink()
             except OSError:
                 pass
+
+
+def library_path() -> Path:
+    """Where the library built from the current source lives."""
+    return library_file("libdagrider_native", SRC, GXX_FLAGS)
 
 
 def load() -> Optional[ctypes.CDLL]:
@@ -95,8 +99,10 @@ def load() -> Optional[ctypes.CDLL]:
         last_build_s = 0.0
         try:
             so = library_path()
-            if not so.exists() and not _build(so):
-                return None
+            if not so.exists():
+                built, last_build_s = compile_library(["g++", *GXX_FLAGS], SRC, so)
+                if not built:
+                    return None
             lib = ctypes.CDLL(str(so))
         except OSError:
             return None

@@ -119,8 +119,9 @@ class CertSigner:
         return bls.sign(self._sk, digest)
 
     def sign_digests(self, digests: Sequence[bytes]) -> List[bytes]:
-        """Round-batched share signing through ``bls12381.sign_many`` (its
-        host path); byte-identical to mapping :meth:`sign_digest`."""
+        """Round-batched share signing through ``bls12381.sign_many``, on
+        the lane DAGRIDER_CERT_SIGN names; byte-identical to mapping
+        :meth:`sign_digest`."""
         return bls.sign_many([self._sk] * len(digests), digests)
 
     #: domain tag for lane availability acks — keeps an ack share from

@@ -9,8 +9,13 @@ aggregate pairing
 
     e(agg, -G2) * prod_i e(H(digest_i), pk_i) == 1
 
-via :func:`crypto.bls12381.multi_pairing_check` (precomputed per-key
-Miller lines, shared squarings, one final exponentiation) on the host.
+through the pairing seam: ``pair="device"`` (the default) runs the Miller
+product on the card (:mod:`ops.bls_pairing`) and the final exponentiation
+on the host; ``pair="host"`` runs
+:func:`crypto.bls12381.multi_pairing_check` (precomputed per-key Miller
+lines, shared squarings, one final exponentiation), the oracle. The
+verdicts are the same. Consecutive round certificates fold into a span
+certificate (cert-of-certs), checked with one combined product.
 
 Soundness note: per-producer signatures over DISTINCT messages (each
 process signs its own vertex digest) are what make the aggregate binding —
@@ -27,9 +32,9 @@ from __future__ import annotations
 from typing import Callable, List, Optional, Sequence, Tuple
 
 from dag_rider_tpu_torch import config
-from dag_rider_tpu_torch.core.types import RoundCertificate
+from dag_rider_tpu_torch.core.types import RoundCertificate, SpanCertificate
 from dag_rider_tpu_torch.crypto import bls12381 as bls
-from dag_rider_tpu_torch.ops import bls_msm
+from dag_rider_tpu_torch.ops import bls_msm, bls_pairing
 from dag_rider_tpu_torch.verifier.base import KeyRegistry
 
 #: memoized verdicts kept per verifier (bounded like the crypto-layer
@@ -38,17 +43,15 @@ _VERDICT_CACHE_MAX = 4096
 
 
 def _resolve_pair(pair: Optional[str]) -> str:
-    """The aggregate-pairing backend: ``pair``, else DAGRIDER_CERT_PAIR.
-    Only the host pairing is ported; "device" raises."""
-    choice = pair if pair is not None else config.env_choice("DAGRIDER_CERT_PAIR")
-    if choice == "device":
-        raise NotImplementedError(
-            "device pairing (cert pair \"device\" / DAGRIDER_CERT_PAIR=device) is "
-            "not ported yet (ROADMAP Queue 1 item 5); the port pairs on the host"
-        )
-    if choice != "host":
-        raise ValueError(f'cert pairing must be "host" or "device", got {choice!r}')
-    return choice
+    """The aggregate-pairing backend: ``pair``, else DAGRIDER_CERT_PAIR
+    when the environment sets it, else "device" (the port's default, as
+    for the MSM; the registry's "host" default is the reference's)."""
+    if pair is None:
+        in_env = config.env_is_set("DAGRIDER_CERT_PAIR")
+        pair = config.env_choice("DAGRIDER_CERT_PAIR") if in_env else "device"
+    if pair not in ("host", "device"):
+        raise ValueError(f'cert pairing must be "host" or "device", got {pair!r}')
+    return pair
 
 
 class CertVerifier:
@@ -61,12 +64,14 @@ class CertVerifier:
         msm: "device" (the default: the G1 MSM of ``ops.bls_msm``) or
             "host" (the group law, the oracle, only when asked for);
             bit-identical aggregates.
-        device: where a "device" MSM runs: ``cuda`` unless the caller
-            passes ``"cpu"`` (the plain torch path). Raises at
-            construction when CUDA is asked for and there is no card.
-        pair: "host" (the host multi-pairing); None reads
-            DAGRIDER_CERT_PAIR. "device" (the JAX package's lane-parallel
-            pairing) is not ported yet and raises.
+        device: where a "device" MSM and a "device" pairing run: ``cuda``
+            unless the caller passes ``"cpu"`` (the plain torch path).
+            Raises at construction when CUDA is asked for and there is no
+            card.
+        pair: "device" (the Miller product on ``device``, the final
+            exponentiation on the host) or "host" (the host multi-pairing,
+            the oracle); None reads DAGRIDER_CERT_PAIR when it is set and
+            is "device" otherwise. The same verdicts.
     """
 
     def __init__(
@@ -88,7 +93,8 @@ class CertVerifier:
         self.registry = registry
         self.quorum = int(quorum)
         self.msm = msm
-        self.device = bls_msm.resolve_device(device) if msm == "device" else None
+        on_device = msm == "device" or self.pair == "device"
+        self.device = bls_msm.resolve_device(device) if on_device else None
         self._verdicts: dict = {}
         #: Optional callback fired once per certificate, on its FIRST
         #: successful verification (memo hits stay silent — the event
@@ -174,9 +180,11 @@ class CertVerifier:
         return ok
 
     def _pairing_check(self, pairs: Sequence[tuple]) -> bool:
-        """One product check on the host; the counter is the number of
-        pairing products paid."""
+        """Route one product check through the pairing seam; the counter
+        is the number of pairing products paid."""
         self.stats["pairing_checks"] += 1
+        if self.pair == "device":
+            return bls_pairing.multi_pairing_check(pairs, self.device)
         return bls.multi_pairing_check(pairs)
 
     def _cert_pairs(self, cert: RoundCertificate) -> Optional[List[tuple]]:
@@ -260,3 +268,80 @@ class CertVerifier:
         for i in fresh:
             verdicts[i] = self.verify_certificate(certs[i])
         return [bool(v) for v in verdicts]
+
+    # -- cert-of-certs ----------------------------------------------------
+
+    def make_span(
+        self, first_round: int, certs: Sequence[RoundCertificate]
+    ) -> Optional[SpanCertificate]:
+        """Fold consecutive VERIFIED round certificates into one
+        cert-of-certs: the span aggregate is the G1 sum of the round
+        aggregates (through the same MSM seam as share aggregation), so
+        one combined pairing covers every (digest, pk) pair in the span.
+        Returns None unless the certs cover exactly ``first_round,
+        first_round + 1, ...`` gap-free."""
+        if not certs:
+            return None
+        rounds = [c.round for c in certs]
+        if rounds != list(range(first_round, first_round + len(certs))):
+            return None
+        points = []
+        for c in certs:
+            pt = bls.g1_decompress(c.agg_sig)
+            if pt is None:
+                return None
+            points.append(pt)
+        agg = bls.g1_compress(self._sum_points(points))
+        return SpanCertificate(
+            first_round=first_round,
+            signers=tuple(c.signers for c in certs),
+            digests=tuple(c.digests for c in certs),
+            agg_sig=agg,
+        )
+
+    def _span_structurally_valid(self, span: SpanCertificate) -> bool:
+        k = len(span.signers)
+        if k < 1 or len(span.digests) != k or span.first_round < 1:
+            return False
+        for s, d in zip(span.signers, span.digests):
+            if len(s) < self.quorum or len(s) != len(d):
+                return False
+            if any(b <= a for a, b in zip(s, s[1:])):
+                return False
+            if s[0] < 0 or s[-1] >= self.registry.n:
+                return False
+        return True
+
+    def verify_span(self, span: SpanCertificate) -> bool:
+        """ONE combined product check for the whole span — the
+        steady-state consumer pays 1/k pairing checks per round. False
+        for any defect, never an exception; the verdict is memoized
+        under the span's own tagged key (never folded back into
+        per-round verdicts — see :meth:`verify_many` on why)."""
+        self.stats["certs_checked"] += 1
+        key = span.signing_key()
+        hit = self._verdicts.get(key)
+        if hit is not None:
+            self.stats["verdict_hits"] += 1
+            return hit
+        ok = self._span_check(span)
+        if len(self._verdicts) >= _VERDICT_CACHE_MAX:
+            self._verdicts.clear()
+        self._verdicts[key] = ok
+        self.stats["certs_valid" if ok else "certs_invalid"] += 1
+        return ok
+
+    def _span_check(self, span: SpanCertificate) -> bool:
+        if not self._span_structurally_valid(span):
+            return False
+        agg = bls.g1_decompress(span.agg_sig)
+        if agg is None:
+            return False
+        pairs: List[tuple] = [(agg, bls.g2_neg(bls.G2_GEN))]
+        for signers, digests in zip(span.signers, span.digests):
+            for src, digest in zip(signers, digests):
+                pk = self.registry.bls_key_of(src)
+                if pk is None:
+                    return False
+                pairs.append((bls.hash_to_g1(digest), pk))
+        return self._pairing_check(pairs)

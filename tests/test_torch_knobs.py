@@ -2,10 +2,10 @@
 
 One case per row of the knob table: each knob either takes the port's real
 branch (``DAGRIDER_COMB_BITS``, ``DAGRIDER_PREP_WORKERS``,
-``DAGRIDER_NATIVE``, ``sign_many(backend="host")``) or, where the branch is
-not ported yet, raises ``NotImplementedError`` naming its ROADMAP Queue 1
-item — never a quiet fall-through to another route. The seams the port
-does not have yet name their current item as well.
+``DAGRIDER_NATIVE``, ``DAGRIDER_CERT_SIGN``, ``DAGRIDER_CERT_PAIR``) or,
+where the branch is not ported yet, raises ``NotImplementedError`` naming
+its ROADMAP Queue 1 item — never a quiet fall-through to another route.
+The seams the port does not have yet name their current item as well.
 """
 
 import pytest
@@ -107,12 +107,22 @@ def test_sign_many_host_backend_equals_sign(monkeypatch):
 
 
 @pytest.mark.parametrize("backend", ["native", "device"])
-def test_sign_many_unported_backends_raise(monkeypatch, backend):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        bls.sign_many(SKS, MSGS, backend=backend)
+def test_sign_many_lane_backends_equal_sign(monkeypatch, backend):
+    """Each lane, by argument and by knob, signs the bytes of ``sign``;
+    the device lane runs on the card unless the caller passes "cpu", and
+    without a card it raises instead of signing elsewhere."""
+    want = [bls.sign(sk, m) for sk, m in zip(SKS, MSGS)]
+    bls.reset_sign_host_rows()
+    assert bls.sign_many(SKS, MSGS, backend=backend, device="cpu") == want
     monkeypatch.setenv("DAGRIDER_CERT_SIGN", backend)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        bls.sign_many(SKS, MSGS)
+    if backend == "device":
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            bls.sign_many(SKS, MSGS)
+        assert bls.sign_many(SKS, MSGS, device="cpu") == want
+    else:
+        assert bls.sign_many(SKS, MSGS) == want
+    assert bls.sign_many(SKS, MSGS, backend="host") == want  # argument beats knob
+    assert bls.SIGN_HOST_ROWS == {"unavailable": 0, "resigned": 0}
 
 
 def test_sign_many_rejects_unknown_backend():
@@ -123,14 +133,24 @@ def test_sign_many_rejects_unknown_backend():
 # -- DAGRIDER_CERT_PAIR / CertVerifier(pair=) ------------------------------
 
 
-def test_cert_pair_device_raises(cert_reg, monkeypatch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        CertVerifier(cert_reg, 3, msm="host", pair="device")
-    assert CertVerifier(cert_reg, 3, msm="host").pair == "host"
-    monkeypatch.setenv("DAGRIDER_CERT_PAIR", "device")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+def test_cert_pair_knob_then_device_default(cert_reg, monkeypatch):
+    """pair=None pairs on the device unless DAGRIDER_CERT_PAIR says
+    otherwise; the argument beats the knob; the device lane runs on the
+    card unless the caller passes "cpu", and without a card it raises."""
+    monkeypatch.delenv("DAGRIDER_CERT_PAIR", raising=False)
+    cv = CertVerifier(cert_reg, 3, msm="host", device="cpu")
+    assert (cv.pair, cv.device.type) == ("device", "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         CertVerifier(cert_reg, 3, msm="host")
+    monkeypatch.setenv("DAGRIDER_CERT_PAIR", "host")
+    cv = CertVerifier(cert_reg, 3, msm="host")
+    assert (cv.pair, cv.device) == ("host", None)  # honoured over the default
+    assert CertVerifier(cert_reg, 3, msm="host", pair="device", device="cpu").pair == "device"
+    monkeypatch.setenv("DAGRIDER_CERT_PAIR", "device")
+    assert CertVerifier(cert_reg, 3, msm="host", device="cpu").pair == "device"
     assert CertVerifier(cert_reg, 3, msm="host", pair="host").pair == "host"
+    with pytest.raises(ValueError, match="cert pairing"):
+        CertVerifier(cert_reg, 3, msm="host", pair="gpu")
 
 
 # -- the seams not ported yet name their current item ------------------------
@@ -144,7 +164,5 @@ def test_unported_seams_name_their_item():
         Simulation(cfg).attach_mempools()
     with pytest.raises(ValueError, match="Queue 1 item 4"):
         Simulation(cfg, verifier="sharded")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        Simulation(Config(n=4, coin="round_robin", cert_span=2), verifier="cpu", cert=True)
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         derive_epoch_keys(None, 4, 2, "dkg", 0)
