@@ -2,8 +2,9 @@
 """Drive the PyTorch port's paths once on one NVIDIA card.
 
 Two paths, each through the hand-written CUDA kernels, the round
-certificate lane around the second, and then the consensus loop that runs
-them all. The main path is
+certificate lane around the second, the parallel layer (the windowed
+oracle, the round step, the sharded verifier, BASELINE config #5 at
+n = 1,024), and then the consensus loop that runs them all. The main path is
 round signature verification: a committee of n = 256 validators, 16 DAG
 rounds of 256 signed vertices (171 strong edges each), verified by
 ``CUDAVerifier.verify_rounds`` as one merged 4,096-signature dispatch.
@@ -112,11 +113,34 @@ signatures). The script:
    host route, launches exact; the wall, admitted and dispatched sigs/s,
    wave-commit and wave-interval p50, pairing checks and their wall, and
    the host split (certificate-share signing included);
-10. prints ``{"device_programs": [...]}`` (the pairing's and the ladder's
-   times and bounds), ``{"kernels": [...]}`` (with each kernel's
-   ``consensus_launches`` and ``consensus_cert_launches``; the tree's row
-   carries its M = 32 reading under ``at_m32``), the card line again, and
-   as the last line ``{"ok": true, "device": {...}}``.
+10. windowed oracle (after the 8-bit phase): ``CUDAVerifier(comb=False)``
+   on the verify phase's 4,096 rows, exactly 80 ``padd_xx`` and one
+   ``pow22523`` launch, its mask equal to the comb mask and the host
+   oracle's sample, the device program eager and with its walk replayed
+   from a step graph, its torch ops and bound; then the round step
+   (``make_round_step(mesh_from_env(), quorum=171)``) on round 4 and wave 1
+   of the verify DAG against the numpy twins, and ``wave_commit_votes`` at
+   n = 256 and 1,024; then the sharded verifier through
+   ``VerifierPipeline(depth=2)`` on one card, ``mesh_from_env()`` and
+   ``virtual_mesh(4)`` (masks equal, launches k a chunk, sigs/s in turns)
+   and one ``virtual_mesh(5)`` dispatch;
+11. BASELINE config #5 (after the BLS phases): n = 1,024, 4 rounds signed
+   in spawn workers, 64 corrupted, one merged dispatch through
+   ``ShardedCUDAVerifier`` on ``mesh_from_env()``, the T = 1,024 MSM
+   through ``ShardedMSM()`` and 683 signatures summed by
+   ``CertVerifier(msm="sharded")``, launches exact; masks equal to
+   ``CUDAVerifier`` and the host oracle's sample, the MSM to
+   ``bls_msm.msm``, the host group law and ``virtual_mesh(4)``;
+12. consensus with ``verifier="sharded"`` (after phase 9): phase 8's
+   cluster and number of ``run`` calls, byte-identical to phase 8's
+   device run, launches exact, nothing contained;
+13. prints ``{"device_programs": [...]}`` (the pairing's, the ladder's, the
+   windowed program's, ``wave_commit_votes``' and the sharded MSM's times
+   and bounds), ``{"kernels": [...]}`` (with each kernel's
+   ``consensus_launches``, ``consensus_cert_launches``,
+   ``windowed_launches``, ``n1024_launches`` and ``sharded_launches``; the
+   tree's row carries its M = 32 reading under ``at_m32``), the card line
+   again, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. Run it from the root of
 the repository: ``python3 chip_smoke.py`` (one card, no arguments).
@@ -155,6 +179,10 @@ CONS_N = 256  # the consensus phase's committee (BASELINE.json config #4)
 CONS_WAVES = 3  # every view decides at least this many waves
 CONS_MAX_RUNS = 40  # cap on Simulation.run calls before the phase fails
 CERT_BLOCKS = 14  # blocks a process submits in the certificate cell: 14 rounds, 3 waves
+
+N1024 = 1024  # BASELINE.json config #5: "1024-node full-wave MSM"
+N1024_ROUNDS = 4  # bench.py's verify1024 rung: 4 rounds of 1,024 signed vertices
+MSM_T = 1024  # bench.py's msm1024 rung
 
 # Published H100 SXM peak memory rate (NVIDIA data sheet), used for the
 # byte side of each kernel's bound.
@@ -240,7 +268,6 @@ def main() -> int:
     sys.path.insert(0, root)
     try:
         from dag_rider_tpu_torch.core.types import Block, Vertex, VertexID
-        from dag_rider_tpu_torch.crypto import ed25519
         from dag_rider_tpu_torch.ops import comb, cuda_field, cuda_group as CG, field as F
         from dag_rider_tpu_torch.utils import build, native
         from dag_rider_tpu_torch.verifier.base import KeyRegistry, VertexSigner
@@ -250,8 +277,6 @@ def main() -> int:
         print(f"chip_smoke: the dag_rider_tpu_torch package is missing: {exc}",
               file=sys.stderr)
         return 2
-    import dataclasses
-
     card = smi("name,power.limit")
     print(card)
     max_sm_mhz = float(smi("clocks.max.sm").split()[0])
@@ -313,33 +338,7 @@ def main() -> int:
         rounds.append(rnd)
     t_sign = time.perf_counter() - t0
     total = ROUNDS * N_KEYS
-    flat_idx = rng.choice(total, N_CORRUPT, replace=False)
-    corrupted = set()
-    for k, fi in enumerate(flat_idx):
-        r, i = divmod(int(fi), N_KEYS)
-        v = rounds[r][i]
-        sig = v.signature
-        mode = k % 7
-        if mode == 0:  # one flipped signature bit
-            b = bytearray(sig)
-            b[int(rng.integers(64))] ^= 1 << int(rng.integers(8))
-            v = dataclasses.replace(v, signature=bytes(b))
-        elif mode == 1:  # another vertex's signature
-            v = dataclasses.replace(v, signature=rounds[r][(i + 1) % N_KEYS].signature)
-        elif mode == 2:  # out-of-range source
-            v = dataclasses.replace(v, id=VertexID(v.round, N_KEYS + i))
-        elif mode == 3:  # s >= L (malleability)
-            s_big = int.from_bytes(sig[32:], "little") + ed25519.L
-            v = dataclasses.replace(v, signature=sig[:32] + s_big.to_bytes(32, "little"))
-        elif mode == 4:  # non-canonical R (y >= p)
-            v = dataclasses.replace(
-                v, signature=(2**255 - 10).to_bytes(32, "little") + sig[32:])
-        elif mode == 5:  # missing signature
-            v = dataclasses.replace(v, signature=None)
-        else:  # tampered block
-            v = dataclasses.replace(v, block=Block((b"tampered",)))
-        rounds[r][i] = v
-        corrupted.add(int(fi))
+    corrupted = corrupt_rounds(rounds, N_KEYS, rng)
     print(f"set-up: keys {t_keys:.2f} s, device tables {t_tables:.2f} s "
           f"({tables.numel() * 4 / 2**20:.0f} MiB), warmup at {total} rows {t_warm:.2f} s, "
           f"signing {total} vertices {t_sign:.2f} s, {len(corrupted)} corrupted")
@@ -532,15 +531,28 @@ def main() -> int:
     host_prep_phase(ver, rounds, mask)
     tree_row = next(r for r in report if r["name"] == "tree_sum_xyzt")
     tree_row["at_m32"] = comb8_phase(reg, rounds, mask, sample, oracle, imad_per_s)
+    windowed_launches, windowed_row = windowed_phase(reg, rounds, mask, sample, oracle,
+                                                     imad_per_s)
+    vote_rows = round_step_phase(reg, rounds, mask, imad_per_s)
+    sharded_verify_phase(ver, rounds, mask)
 
     bls_rows, programs = bls_phases(dev, imad_per_s)
     report.extend(bls_rows)
+    programs.append(windowed_row)
+    programs.extend(vote_rows)
+    n1024_launches, n1024_msm_row = n1024_phase(imad_per_s)
+    programs.append(n1024_msm_row)
 
-    launches = consensus_phase()
+    ref = consensus_phase()
     cert_launches = consensus_cert_phase()
+    sharded_launches = sharded_consensus_phase(ref)
     for row in report:
-        row["consensus_launches"] = launches.get(row["name"], 0)
-        row["consensus_cert_launches"] = cert_launches.get(row["name"], 0)
+        name = row["name"]
+        row["consensus_launches"] = ref["launches"].get(name, 0)
+        row["consensus_cert_launches"] = cert_launches.get(name, 0)
+        row["sharded_launches"] = sharded_launches.get(name, 0)
+        row["windowed_launches"] = windowed_launches.get(name, 0)
+        row["n1024_launches"] = n1024_launches.get(name, 0)
 
     print(json.dumps({"device_programs": programs}))
     print(json.dumps({"kernels": report}))
@@ -549,6 +561,46 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def corrupt_rounds(rounds, n: int, rng) -> set:
+    """Corrupt ``N_CORRUPT`` seeded rows of ``rounds`` in place, seven
+    kinds in turn: a flipped signature bit, another vertex's signature, an
+    out-of-range source, s >= L, a non-canonical R (y >= p), a missing
+    signature, a tampered block. Returns the flat indices corrupted."""
+    import dataclasses
+
+    from dag_rider_tpu_torch.core.types import Block, VertexID
+    from dag_rider_tpu_torch.crypto import ed25519
+
+    total = sum(len(r) for r in rounds)
+    corrupted = set()
+    for k, fi in enumerate(rng.choice(total, N_CORRUPT, replace=False)):
+        r, i = divmod(int(fi), n)
+        v = rounds[r][i]
+        sig = v.signature
+        mode = k % 7
+        if mode == 0:  # one flipped signature bit
+            b = bytearray(sig)
+            b[int(rng.integers(64))] ^= 1 << int(rng.integers(8))
+            v = dataclasses.replace(v, signature=bytes(b))
+        elif mode == 1:  # another vertex's signature
+            v = dataclasses.replace(v, signature=rounds[r][(i + 1) % n].signature)
+        elif mode == 2:  # out-of-range source
+            v = dataclasses.replace(v, id=VertexID(v.round, n + i))
+        elif mode == 3:  # s >= L (malleability)
+            s_big = int.from_bytes(sig[32:], "little") + ed25519.L
+            v = dataclasses.replace(v, signature=sig[:32] + s_big.to_bytes(32, "little"))
+        elif mode == 4:  # non-canonical R (y >= p)
+            v = dataclasses.replace(
+                v, signature=(2**255 - 10).to_bytes(32, "little") + sig[32:])
+        elif mode == 5:  # missing signature
+            v = dataclasses.replace(v, signature=None)
+        else:  # tampered block
+            v = dataclasses.replace(v, block=Block((b"tampered",)))
+        rounds[r][i] = v
+        corrupted.add(int(fi))
+    return corrupted
 
 
 @contextlib.contextmanager
@@ -839,7 +891,7 @@ def read_launch_counters() -> dict:
 
 
 def drive_cluster(cfg, keys, signers, msm, *, verifier=None, cert=False, per_process=2,
-                  calls=None, budget=None, until_quiet=False):
+                  calls=None, budget=None, until_quiet=False, named=None):
     """Build the port's cluster, run it, and split its host time: vertex
     signing, coin share signing, the coin's combine with its pairing
     check, the verify seam, and with certificates the certificate share
@@ -847,7 +899,9 @@ def drive_cluster(cfg, keys, signers, msm, *, verifier=None, cert=False, per_pro
 
     ``verifier`` is the shared per-vertex verifier; with ``cert`` the
     cluster builds the named "device" verifier (a shared
-    ``CUDAVerifier``) with the certificate MSM and pairing on the card.
+    ``CUDAVerifier``) with the certificate MSM and pairing on the card;
+    ``named`` builds that named verifier instead (``"sharded"``: a shared
+    ``ShardedCUDAVerifier`` over ``mesh_from_env()``).
     The launch counters are set to 0 just before the first ``run`` call
     (after the comb tables exist). The run loop: ``calls`` calls if given,
     else until every view decided ``CONS_WAVES`` waves, or with
@@ -893,6 +947,10 @@ def drive_cluster(cfg, keys, signers, msm, *, verifier=None, cert=False, per_pro
         cv._sum_points = recorded_sum
         cv.make_certificate = timed(cv.make_certificate, spent, "certificate aggregation")
         cv._pairing_check = timed(cv._pairing_check, spent, "certificate pairing checks")
+    elif named is not None:
+        sim = Simulation(cfg, coin_factory=coin, verifier=named,
+                         signer_factory=lambda i: wrapped[i])
+        sim.processes[0].verifier._comb_tables_dev()  # the build launches padd_xx
     else:
         sim = Simulation(cfg, coin_factory=coin, verifier_factory=lambda i: verifier,
                          signer_factory=lambda i: wrapped[i])
@@ -936,7 +994,9 @@ def consensus_phase() -> dict:
     calls. Fails unless every view decided ``CONS_WAVES`` waves, the logs
     and leaders are byte-identical, the launches are exactly those of the
     dispatches and MSMs that ran, and nothing was contained. Returns the
-    card run's launches per kernel."""
+    card run's launches per kernel, logs, group signatures, decided waves,
+    message and call counts, wall, keys and signers (the sharded run's
+    reference)."""
     import torch
 
     from dag_rider_tpu_torch import Config
@@ -1043,7 +1103,8 @@ def consensus_phase() -> dict:
         fail("consensus: a kernel disagrees with its plain version at the consensus width")
     print(f"consensus phase wall (set-up, both runs, checks): "
           f"{time.perf_counter() - t_phase:.2f} s")
-    return launches
+    return {"launches": launches, "logs": logs, "sigma": oracle._sigma, "decided": decided,
+            "msgs": msgs, "calls": calls, "wall": wall, "keys": keys, "signers": signers}
 
 
 def consensus_cert_phase() -> dict:
@@ -1830,6 +1891,544 @@ def bls_phases(dev, imad_per_s: float):
         r["launches"] += span_launches[r["name"]]
     programs.append(signing_phase(dev, cert_sks, imad_per_s))
     return [row, hrow], programs
+
+
+def windowed_products() -> tuple:
+    """(general products, additions, constant products besides the
+    additions' 2d) of one row of the windowed verify: decompression (the
+    262 of the pow22523 chain and 11 around it, plus the D and SQRT_M1
+    constants), 15 table additions, 64 windows of four packed doublings (8
+    products each) and one addition for each of [k]A and [s]B, R + [k]A,
+    and the projective comparison (4). An addition is 8 general products
+    and one by 2d."""
+    adds = 15 + 2 * 64 + 1
+    return 262 + 11 + 8 * adds + 64 * 4 * 8 + 4, adds, 2
+
+
+def windowed_phase(reg, rounds, mask, sample, oracle, imad_per_s: float):
+    """The windowed oracle path (``CUDAVerifier(comb=False)``) on the verify
+    phase's 4,096 rows: with the counters at 0 one merged dispatch, exactly
+    80 ``padd_xx`` launches (15 table steps, 64 replayed walk steps, R +
+    [k]A) and one ``pow22523``; its mask equal to the comb mask on every
+    row and the host oracle on the sample; then the device program alone,
+    eager and with the walk replayed from its step graph (equal masks),
+    its torch ops and its bound. Returns the launches and the program's
+    row."""
+    import torch
+
+    from dag_rider_tpu_torch.ops import cuda_group as CG, field as F, windowed
+    from dag_rider_tpu_torch.verifier.cuda import CUDAVerifier
+
+    flat = [v for rnd in rounds for v in rnd]
+    total = len(flat)
+    wv = CUDAVerifier(reg, comb=False)
+    dev = wv.device
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = wv.verify_rounds(rounds)  # captures the walk's step graph at this width
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    reset_launch_counters()
+    t0 = time.perf_counter()
+    masks = wv.verify_rounds(rounds)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    launches = read_launch_counters()
+    want = {"padd_xx": 80, "tree_sum_xyzt": 0, "finish_check": 0, "pow22523": 1,
+            "field_mul": 0, "padd381_xx": 0, "horner381": 0}
+    if launches != want:
+        fail(f"windowed dispatch launched {launches}, want {want}")
+    wmask = flat_mask(masks)
+    if wmask != mask:
+        bad = [i for i in range(total) if wmask[i] != mask[i]]
+        fail(f"windowed mask differs from the comb mask at rows {bad[:10]}")
+    if flat_mask(first) != wmask or [wmask[i] for i in sample] != oracle:
+        fail("windowed mask: the first dispatch or the host oracle's sample differs")
+
+    args = [torch.from_numpy(a).to(dev) for a in wv.prepare_batch(flat)]
+    one = F.const("ONE", dev).expand_as(args[2])
+    point = (args[2], args[3], one, args[4])
+
+    def run(graph):
+        return windowed.verify(args[0], args[1], point, *args[5:], graph=graph)
+
+    times, outs = {False: [], True: []}, {}
+    for graph in (False, True, True, False):  # in turns
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        outs[graph] = run(graph)
+        torch.cuda.synchronize()
+        times[graph].append(time.perf_counter() - t)
+    if not torch.equal(outs[False], outs[True]) or outs[True].cpu().tolist() != wmask:
+        fail("windowed: the eager and the step-graph programs differ, or differ from the mask")
+    with OpCount() as eager_ops:
+        run(False)
+    with OpCount() as graph_ops:
+        run(True)
+    acc = torch.zeros((CG.ROWS, 2 * total), dtype=torch.int32, device=dev)
+    with OpCount() as step_ops:
+        windowed.step(acc, acc)
+    kernels, busy_ms = device_kernels(lambda: run(True))
+    general, adds, _ = windowed_products()
+    nnz = {c: int((getattr(F, c) != 0).sum()) for c in ("D", "D2", "SQRT_M1")}
+    imads = total * (general * IMAD_PER_PRODUCT + 22 * (adds * nnz["D2"] + nnz["D"]
+                                                        + nnz["SQRT_M1"]))
+    in_bytes = sum(a.numel() * a.element_size() for a in args) + total
+    b_ms, b_by = bound(in_bytes, imads, imad_per_s)
+    eager_s, graph_s = min(times[False]), min(times[True])
+    print(f"windowed path (comb=False, {total} sigs): mask equal to the comb mask on every row "
+          f"and the host oracle on {len(sample)}; dispatch {t_first * 1e3:.1f} ms first (step "
+          f"graph captured), {t_warm * 1e3:.1f} ms warm; launches {launches}")
+    print(f"  device program alone: eager {eager_s * 1e3:.1f} ms, walk from its step graph "
+          f"{graph_s * 1e3:.1f} ms (runs eager {[round(t * 1e3, 1) for t in times[False]]}, graph "
+          f"{[round(t * 1e3, 1) for t in times[True]]} ms); torch ops from the host a dispatch: "
+          f"eager {eager_ops.ops}, with the graph {graph_ops.ops} ({step_ops.ops} a step, 64 "
+          f"steps replayed); kernels on the card "
+          f"{kernels if kernels is not None else 'not measured'}, device time "
+          f"{f'{busy_ms:.2f} ms' if busy_ms is not None else 'not measured'}; "
+          f"{general + adds + 2} field products a row, bound {b_ms:.4f} ms by {b_by}")
+    return launches, {
+        "name": "windowed.verify (CUDAVerifier(comb=False))", "replaces":
+        "dag_rider_tpu/ops/curve.py:249 verify_core (jnp, no pallas_call)", "rows": total,
+        "eager_ms": eager_s * 1e3, "graph_ms": graph_s * 1e3, "torch_ops_eager": eager_ops.ops,
+        "torch_ops_graph": graph_ops.ops, "kernels": kernels, "device_ms": busy_ms,
+        "launches": launches, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def round_step_phase(reg, rounds, mask, imad_per_s: float) -> list:
+    """``make_round_step(mesh_from_env(), quorum=171)`` on round 4's 256
+    signed vertices and wave 1 of the verify phase's DAG (rounds 1-4, each
+    vertex's 171 strong edges), for three leaders: the accept mask equal to
+    the comb (and windowed) mask of round 4, the votes and commit equal to
+    the numpy twins ``reach_chain_np``/``leader_reach_np``, the launches
+    exact; then ``wave_commit_votes`` alone on the card at n = 256 and
+    1,024, timed beside its bound. Returns the two vote rows."""
+    import numpy as np
+    import torch
+
+    from dag_rider_tpu_torch.ops import dag_kernels
+    from dag_rider_tpu_torch.parallel.mesh import mesh_from_env
+    from dag_rider_tpu_torch.parallel.round_step import make_round_step
+    from dag_rider_tpu_torch.verifier.cuda import CUDAVerifier
+
+    n, quorum = N_KEYS, STRONG_EDGES
+    mesh = mesh_from_env()
+    step = make_round_step(mesh, quorum=quorum)
+    strong = np.zeros((5, n, n), dtype=bool)
+    for r in range(1, 5):
+        for i, v in enumerate(rounds[r - 1]):
+            for e in v.strong_edges:
+                strong[r, i, e.source] = True
+    strong_wave = np.ascontiguousarray(strong[[4, 3, 2]])
+    args = CUDAVerifier(reg, comb=False).prepare_batch(rounds[3])
+    want = mask[3 * n : 4 * n]
+    exists_r4 = np.array(want, dtype=bool)
+    reach = dag_kernels.reach_chain_np(strong_wave)
+    step(*args, strong_wave, exists_r4, 0)  # the walk's step graph at this width
+    reset_launch_counters()
+    leaders, walls = (0, n // 2 + 1, n - 1), []
+    for leader in leaders:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        accept, commit, votes = step(*args, strong_wave, exists_r4, leader)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        host = reach[:, leader] & exists_r4
+        if accept[:n].cpu().tolist() != want:
+            fail(f"round step (leader {leader}): accept mask differs from round 4's mask")
+        if not (votes.cpu().numpy() == host).all() or bool(commit) != (host.sum() >= quorum):
+            fail(f"round step (leader {leader}): votes or commit differ from reach_chain_np")
+        if not (dag_kernels.leader_reach_np(strong_wave, leader) == reach[leader]).all():
+            fail(f"round step: leader_reach_np({leader}) differs from reach_chain_np's row")
+    launches = read_launch_counters()
+    k = mesh.size
+    expect = {"padd_xx": 80 * k * len(leaders), "tree_sum_xyzt": 0, "finish_check": 0,
+              "pow22523": k * len(leaders), "field_mul": 0, "padd381_xx": 0, "horner381": 0}
+    if launches != expect:
+        fail(f"round step launches {launches}, want {expect}")
+    print(f"round step ({mesh!r}, quorum {quorum}, round 4's {n} vertices, wave 1 of the verify "
+          f"DAG, leaders {leaders}): accept equal to the mask, votes and commit equal to the "
+          f"numpy twins (commit {bool(commit)}, {int(votes.sum())} votes); wall "
+          f"{[round(w * 1e3, 1) for w in walls]} ms; launches {launches}")
+    rows = []
+    vrng = np.random.default_rng(SEED + 6)
+    for size in (n, N1024):
+        if size == n:
+            wave, exists = strong_wave, exists_r4
+        else:
+            wave = vrng.random((3, size, size)) < 2 / 3
+            exists = np.ones(size, dtype=bool)
+        wave_d = torch.from_numpy(wave).cuda()
+        exists_d = torch.from_numpy(exists).cuda()
+        q = 2 * (size // 3) + 1
+        commit, votes = dag_kernels.wave_commit_votes(wave_d, exists_d, 5, quorum=q)
+        host = dag_kernels.reach_chain_np(wave)[:, 5] & exists
+        if not (votes.cpu().numpy() == host).all():
+            fail(f"wave_commit_votes at n = {size} differs from reach_chain_np")
+
+        def votes_fn():
+            return dag_kernels.wave_commit_votes(wave_d, exists_d, 5, quorum=q)
+
+        ms = cuda_ms(votes_fn, 20)
+        g_ms = graph_ms(votes_fn, 20)
+        # two float32 n x n x n products (2 n^3 operations each) over the
+        # card's float32 rate outside the tensor cores (67 TFLOP/s)
+        b_ms, b_by = bound(3 * size * size + 2 * size, 0, imad_per_s)
+        t_ops = 4 * size**3 / 67e12 * 1e3
+        if t_ops > b_ms:
+            b_ms, b_by = t_ops, "operations"
+        print(f"  wave_commit_votes at n = {size}: {ms:.4f} ms, {g_ms:.4f} ms in a CUDA graph "
+              f"(bound {b_ms:.4f} ms by {b_by}); votes equal to reach_chain_np")
+        rows.append({"name": f"dag_kernels.wave_commit_votes n={size}", "replaces":
+                     "dag_rider_tpu/ops/dag_kernels.py:135 (jnp matmuls, no pallas_call)",
+                     "ms": ms, "graph_ms": g_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": None})
+    return rows
+
+
+def sharded_verify_phase(ver, rounds, mask) -> None:
+    """The sharded verifier at n = 256 through ``VerifierPipeline(depth=2,
+    warmup=True)`` with one round a dispatch, as ``bench.py:3430-3470``
+    drives it, on one card (a fresh ``CUDAVerifier``), on
+    ``mesh_from_env()`` and on ``virtual_mesh(4)``, all three with the
+    default prep engine and the same tables: masks equal to the merged comb
+    dispatch's, launches exactly k per chunk, sigs/s (the three timed in
+    turns), the shard gauges and the tables' bytes per distinct device;
+    then one merged dispatch on ``virtual_mesh(5)`` (an uneven split)."""
+    import torch
+
+    from dag_rider_tpu_torch.parallel.mesh import mesh_from_env, virtual_mesh
+    from dag_rider_tpu_torch.parallel.sharded_verifier import ShardedCUDAVerifier
+    from dag_rider_tpu_torch.verifier.cuda import CUDAVerifier
+    from dag_rider_tpu_torch.verifier.pipeline import VerifierPipeline
+
+    total = sum(len(r) for r in rounds)
+    chunks = -(-total // N_KEYS)
+    tables = ver.comb_tables()
+    verifiers = {"one card (CUDAVerifier)": CUDAVerifier(ver.registry)}
+    for name, mesh in (("mesh_from_env()", mesh_from_env()), ("virtual_mesh(4)", virtual_mesh(4))):
+        verifiers[f"{name} = {mesh!r}"] = ShardedCUDAVerifier(ver.registry, mesh)
+    pipes, walls = {}, {}
+    for name, v in verifiers.items():
+        v._tables = tables  # the same registry's tables, not a second build
+        v.fixed_bucket = N_KEYS
+        pipes[name] = pipe = VerifierPipeline(v, depth=2, warmup=True)
+        k = getattr(v, "mesh_devices", 1)
+        reset_launch_counters()
+        got = pipe.verify_rounds(rounds)
+        launches = read_launch_counters()
+        want = {"padd_xx": 0, "tree_sum_xyzt": chunks * k, "finish_check": chunks * k,
+                "pow22523": 0, "field_mul": 0, "padd381_xx": 0, "horner381": 0}
+        if flat_mask(got) != mask:
+            fail(f"sharded verify on {name}: masks differ from the merged dispatch's")
+        if launches != want:
+            fail(f"sharded verify on {name}: launches {launches}, want {want}")
+        walls[name] = []
+    for _ in range(3):  # the three in turns
+        for name, pipe in pipes.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe.verify_rounds(rounds)
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+    for name, v in verifiers.items():
+        k = getattr(v, "mesh_devices", 1)
+        extra = (f"; last_shard_batch {v.last_shard_batch}, last_shard_imbalance "
+                 f"{v.last_shard_imbalance:.3f}, tables {v.table_bytes()} B"
+                 if hasattr(v, "mesh") else "")
+        print(f"sharded verify, {name} ({total} sigs, {chunks} chunks of {N_KEYS}, depth 2): masks "
+              f"equal; {total / statistics.median(walls[name]):.0f} sigs/s median (runs "
+              f"{[round(w * 1e3, 1) for w in walls[name]]} ms, in turns); launches exactly "
+              f"{chunks * k} tree_sum_xyzt and finish_check{extra}")
+    sv5 = ShardedCUDAVerifier(ver.registry, virtual_mesh(5))
+    sv5._tables = tables
+    reset_launch_counters()
+    got = sv5.verify_rounds(rounds)
+    launches = read_launch_counters()
+    if flat_mask(got) != mask or (launches["tree_sum_xyzt"], launches["finish_check"]) != (5, 5):
+        fail(f"sharded verify on virtual_mesh(5): masks differ or launches {launches}")
+    print(f"sharded verify, virtual_mesh(5), one merged dispatch: masks equal; padded size "
+          f"{sv5._size_for(total)}, last_shard_batch {sv5.last_shard_batch}, "
+          f"last_shard_imbalance {sv5.last_shard_imbalance:.4f}; launches {launches}")
+
+
+def _sign_rows_worker(args):
+    """Signatures of rows [lo, hi) of round ``r`` of the n-vertex committee
+    (bench.py's ``_signed_round``: 2f + 1 strong edges, the block
+    ``r{r}-tx-{i}`` twice), in a spawn worker that imports no JAX."""
+    seeds, n, quorum, r, lo, hi = args
+    from dag_rider_tpu_torch.verifier.base import VertexSigner
+
+    return [VertexSigner(seeds[i]).sign_vertex(committee_vertex(n, quorum, r, i)).signature
+            for i in range(lo, hi)]
+
+
+def committee_vertex(n: int, quorum: int, r: int, i: int, signature=None):
+    from dag_rider_tpu_torch.core.types import Block, Vertex, VertexID
+
+    return Vertex(id=VertexID(r, i), block=Block((f"r{r}-tx-{i}".encode() * 2,)),
+                  strong_edges=tuple(VertexID(r - 1, s) for s in range(min(n, quorum))),
+                  signature=signature)
+
+
+def signed_rounds(seeds, n: int, rounds: int):
+    """``bench.py:163`` ``_build_batches(n, rounds)``'s signed rounds,
+    signed in spawn workers (at most 8) over row slices."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+
+    quorum = 2 * ((n - 1) // 3) + 1
+    workers = min(8, os.cpu_count() or 1)
+    step = -(-n // workers)
+    jobs = [(seeds, n, quorum, r, lo, min(lo + step, n))
+            for r in range(1, rounds + 1) for lo in range(0, n, step)]
+    with cf.ProcessPoolExecutor(max_workers=workers, mp_context=mp.get_context("spawn")) as ex:
+        parts = list(ex.map(_sign_rows_worker, jobs))
+    out = []
+    for r in range(1, rounds + 1):
+        sigs = [sig for (_, _, _, rr, _, _), part in zip(jobs, parts) if rr == r for sig in part]
+        rnd = [committee_vertex(n, quorum, r, i, sig) for i, sig in enumerate(sigs)]
+        for v in rnd:
+            v.digest()  # fills the signing-bytes memo, as bench.py's rounds arrive
+        out.append(rnd)
+    return out
+
+
+def sharded_msm_adds(points: int, k: int) -> int:
+    """padd381_xx launches of one ShardedMSM over ``points`` on k entries:
+    15 table steps and log2(T/k) tree levels per entry, one per fold
+    level (odd counts carry)."""
+    from dag_rider_tpu_torch.parallel.msm import padded_size
+
+    per = padded_size(points, k) // k
+    levels, d = 0, k
+    while d > 1:
+        d, levels = d // 2 + d % 2, levels + 1
+    return k * (15 + per.bit_length() - 1) + levels
+
+
+def n1024_phase(imad_per_s: float):
+    """BASELINE config #5 at n = 1,024 ("1024-node full-wave MSM"): 4
+    rounds of 1,024 vertices with 683 strong edges (``bench.py:163``), 64
+    corrupted, verified by ``ShardedCUDAVerifier`` on ``mesh_from_env()``
+    in one merged dispatch; the T = 1,024 MSM of ``bench.py:3734-3744``
+    through ``ShardedMSM()``; 683 certificate signatures summed by
+    ``CertVerifier(msm="sharded")``. The counters are 0 just before those
+    three calls and read just after, and must be exact. The masks equal
+    ``CUDAVerifier``'s and a host oracle sample, the MSM ``bls_msm.msm`` on
+    the card, the host group law and ``ShardedMSM`` on ``virtual_mesh(4)``,
+    the aggregate the host group law's. Returns the launches and the MSM's
+    program row."""
+    import hashlib
+    import random
+
+    import numpy as np
+    import torch
+
+    from dag_rider_tpu_torch.crypto import bls12381 as bls
+    from dag_rider_tpu_torch.ops import bls_msm, cuda_group381 as G, field381 as F381
+    from dag_rider_tpu_torch.parallel.mesh import mesh_from_env, split_rows, virtual_mesh
+    from dag_rider_tpu_torch.parallel.msm import ShardedMSM, padded_size
+    from dag_rider_tpu_torch.parallel.sharded_verifier import ShardedCUDAVerifier
+    from dag_rider_tpu_torch.verifier.base import KeyRegistry
+    from dag_rider_tpu_torch.verifier.cert import CertVerifier
+    from dag_rider_tpu_torch.verifier.cpu import CPUVerifier
+    from dag_rider_tpu_torch.verifier.cuda import CUDAVerifier
+
+    n = N1024
+    quorum = 2 * ((n - 1) // 3) + 1  # 683
+    t0 = time.perf_counter()
+    reg, seeds = KeyRegistry.generate(n)
+    t_keys = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rounds = signed_rounds(seeds, n, N1024_ROUNDS)
+    t_sign = time.perf_counter() - t0
+    corrupted = corrupt_rounds(rounds, n, np.random.default_rng(SEED + 5))
+    flat = [v for rnd in rounds for v in rnd]
+    total = len(flat)
+    mesh = mesh_from_env()
+    print(f"config #5 (n {n}): mesh_from_env() = {mesh!r}; keys {t_keys:.2f} s, signing {total} "
+          f"vertices ({quorum} strong edges) in {min(8, os.cpu_count() or 1)} workers "
+          f"{t_sign:.2f} s, {len(corrupted)} corrupted")
+    sv = ShardedCUDAVerifier(reg, mesh)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    sv._comb_tables_dev()
+    torch.cuda.synchronize()
+    t_tables = time.perf_counter() - t0
+    print(f"  comb tables: built in {t_tables:.2f} s, {sv.table_bytes()} B per distinct device, "
+          f"device memory +{torch.cuda.memory_allocated() - mem0} B")
+    t_warm = sv.warmup(total)
+    # the MSM's inputs (bench.py:3734-3744) and the certificate's shares
+    mrng = random.Random(3)
+    acc = bls.g1_mul(mrng.randrange(1, bls.R))
+    pts = []
+    for _ in range(MSM_T):  # cheap distinct points: repeated doubling
+        pts.append(acc)
+        acc = bls.g1_double(acc)
+    ks = [mrng.randrange(0, bls.R) for _ in range(MSM_T)]
+    cert_sks = [int.from_bytes(hashlib.sha256(b"n1024|bls|%d" % i).digest(), "big") % bls.R
+                for i in range(quorum)]
+    digests = [hashlib.sha512(b"round-9|" + i.to_bytes(4, "little")).digest()
+               for i in range(quorum)]
+    sigs = bls.sign_many(cert_sks, digests, backend="native")
+    # a CertVerifier needs a registry with BLS keys; aggregation reads none
+    creg = KeyRegistry.generate_with_cert(4)[0]
+    cert_sharded = CertVerifier(creg, quorum, msm="sharded")
+    sm = ShardedMSM()
+
+    # -- the main path: counters at 0, the merged verify, the MSM, the aggregate
+    reset_launch_counters()
+    t0 = time.perf_counter()
+    masks = sv.verify_rounds(rounds)
+    torch.cuda.synchronize()
+    t_verify = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    msm_out = sm(ks, pts)
+    t_msm = time.perf_counter() - t0
+    agg = cert_sharded.aggregate(sigs)
+    launches = read_launch_counters()
+    k = mesh.size
+    want = {"padd_xx": 0, "tree_sum_xyzt": k, "finish_check": k, "pow22523": 0, "field_mul": 0,
+            "padd381_xx": sharded_msm_adds(MSM_T, sm.n_shards)
+            + sharded_msm_adds(quorum, cert_sharded._sharded.n_shards),
+            "horner381": 2}
+    if launches != want:
+        fail(f"config #5: launches {launches}, want {want}")
+
+    mask = flat_mask(masks)
+    single = CUDAVerifier(reg)
+    single._tables = sv.comb_tables()  # the same registry's tables
+    if flat_mask(single.verify_rounds(rounds)) != mask:
+        fail("config #5: the sharded masks differ from CUDAVerifier's")
+    rng = np.random.default_rng(SEED + 7)
+    sample = sorted(corrupted) + sorted(int(i) for i in rng.choice(
+        sorted(set(range(total)) - corrupted), N_VALID_SAMPLE, replace=False))
+    if [mask[i] for i in sample] != CPUVerifier(reg).verify_batch([flat[i] for i in sample]):
+        fail("config #5: the sharded mask differs from the host oracle's sample")
+    if not all(mask[i] for i in range(total) if i not in corrupted):
+        fail("config #5: a valid signature outside the corrupted set was rejected")
+    walls, preps, devs = [], [], []
+    for _ in range(PATH_REPEATS):
+        t0 = time.perf_counter()
+        if flat_mask(sv.verify_rounds(rounds)) != mask:
+            fail("config #5: a repeated dispatch returned another mask")
+        walls.append(time.perf_counter() - t0)
+        preps.append(sv.last_prepare_s)
+        devs.append(sv.last_dispatch_s)
+    wall = statistics.median(walls)
+    print(f"  verify: {sum(mask)} accepted of {total}; masks equal to CUDAVerifier's and the host "
+          f"oracle on {len(sample)} rows; warmup {t_warm:.2f} s, first merged dispatch "
+          f"{t_verify * 1e3:.1f} ms; warm (median of {PATH_REPEATS}) {wall * 1e3:.1f} ms = host "
+          f"prep {statistics.median(preps) * 1e3:.1f} ms + device "
+          f"{statistics.median(devs) * 1e3:.1f} ms; {total / wall:.0f} sigs/s; "
+          f"last_shard_batch {sv.last_shard_batch}")
+
+    host_msm = bls.g1_msm(ks, pts)
+    if msm_out != host_msm or bls_msm.msm(ks, pts) != host_msm:
+        fail("config #5: the T = 1024 MSM differs from the host group law or bls_msm.msm")
+    sm4 = ShardedMSM(virtual_mesh(4))
+    if sm4(ks, pts) != host_msm:
+        fail("config #5: ShardedMSM on virtual_mesh(4) differs from the host group law")
+    host_agg = CertVerifier(creg, quorum, msm="host", pair="host").aggregate(sigs)
+    if agg is None or agg != host_agg:
+        fail("config #5: the sharded certificate aggregate differs from msm='host'")
+    msm_walls = {}
+    for name, fn in (("ShardedMSM()", lambda: sm(ks, pts)),
+                     ("virtual_mesh(4)", lambda: sm4(ks, pts)),
+                     ("bls_msm.msm", lambda: bls_msm.msm(ks, pts))):
+        w = []
+        for _ in range(MSM_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            w.append(time.perf_counter() - t0)
+        msm_walls[name] = statistics.median(w)
+    # the device split on virtual_mesh(4): one entry's window sums (T/4
+    # points), the fold of the 4 partials, the Horner chain
+    t = padded_size(MSM_T, sm4.n_shards)
+    nib, px, py, pz = (torch.from_numpy(split_rows(a, sm4.n_shards)[0]).cuda()
+                       for a in bls_msm.pack_inputs(ks, pts, t))
+    lm = torch.cat([px, py, pz], dim=-1).t().contiguous()
+    partials = sm4.window_partials(ks, pts)
+    folded = bls_msm.tree_reduce(partials)[0].contiguous()
+    parts = {"window sums of one of 4 entries": lambda: bls_msm.window_sums(nib, lm),
+             "fold of 4 partials": lambda: bls_msm.tree_reduce(partials),
+             "horner381 incl. canonical": lambda: G.horner381(folded)}
+    split = {name: cuda_ms(fn, 5) for name, fn in parts.items()}
+    gsplit = {name: graph_ms(fn, 5) for name, fn in parts.items()}
+    imads_per_add = 12 * (F381.LIMBS * F381.LIMBS + int((F381.FOLD != 0).sum())) + 2 * F381.LIMBS
+    adds = 15 * t + 64 * (t - 1) + 320
+    b_ms, b_by = bound(4 * (t * (64 + 3 * F381.LIMBS) + 3 * F381.LIMBS), adds * imads_per_add,
+                       imad_per_s)
+    print(f"  MSM (T = {MSM_T}, {sm.n_shards} entries): equal to bls_msm.msm, the host group law "
+          f"and virtual_mesh(4); wall median {msm_walls['ShardedMSM()'] * 1e3:.2f} ms (first "
+          f"{t_msm * 1e3:.2f} ms), virtual_mesh(4) {msm_walls['virtual_mesh(4)'] * 1e3:.2f} ms, "
+          f"bls_msm.msm {msm_walls['bls_msm.msm'] * 1e3:.2f} ms; device split on virtual_mesh(4) "
+          f"(CUDA events / CUDA graph): "
+          + ", ".join(f"{k2} {split[k2]:.3f} / {gsplit[k2]:.3f} ms" for k2 in parts)
+          + f"; {adds} additions, bound {b_ms:.4f} ms by {b_by}")
+    print(f"  certificate aggregation ({quorum} signatures, CertVerifier(msm='sharded')): bytes "
+          f"equal to msm='host'; config #5 launches {launches}")
+    return launches, {
+        "name": "parallel.msm.ShardedMSM T=1024", "replaces":
+        "dag_rider_tpu/parallel/msm.py:66 (shard_map of bls_msm, no new pallas_call)",
+        "entries": sm.n_shards, "wall_ms": msm_walls["ShardedMSM()"] * 1e3,
+        "virtual4_wall_ms": msm_walls["virtual_mesh(4)"] * 1e3,
+        "single_msm_wall_ms": msm_walls["bls_msm.msm"] * 1e3, "split_ms": split,
+        "split_graph_ms": gsplit, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def sharded_consensus_phase(ref) -> dict:
+    """Phase 8's cluster (n = 256, threshold coin, ``propose_empty``) with
+    ``Simulation(verifier="sharded")`` — a shared ``ShardedCUDAVerifier``
+    over ``mesh_from_env()`` — and the same number of ``run`` calls as the
+    ``"device"`` run in ``ref``: logs, leaders, decided waves and messages
+    byte-identical to it, nothing contained, launches exactly k per
+    pipeline dispatch and the coin MSMs'. Returns its launches."""
+    from dag_rider_tpu_torch import Config
+    from dag_rider_tpu_torch.ops import bls_msm
+
+    n = CONS_N
+    cfg = Config(n=n, coin="threshold_bls", propose_empty=True, gc_depth=24)
+    msm_sizes = []
+
+    def card_msm(scalars, points):
+        msm_sizes.append(len(points))
+        return bls_msm.msm(scalars, points)
+
+    sim, oracle, msgs, calls, wall, spent, _ = drive_cluster(
+        cfg, ref["keys"], ref["signers"], card_msm, named="sharded", calls=ref["calls"])
+    launches = read_launch_counters()
+    shared = sim.processes[0].verifier
+    pipe = sim._verify_pipe
+    k = shared.mesh_devices
+    rs = pipe.resilience_stats()
+    contained = {c: rs[c] for c in ("poisoned_windows", "quarantined", "quarantine_rejected")}
+    if any(contained.values()):
+        fail(f"sharded consensus: the pipeline contained faults {contained}")
+    want = {"tree_sum_xyzt": pipe.dispatches * k, "finish_check": pipe.dispatches * k,
+            "padd_xx": 0, "pow22523": 0, "field_mul": 0, **msm_launches(msm_sizes)}
+    if pipe.dispatches <= 0 or launches != want:
+        fail(f"sharded consensus: launches {launches}, want {want}")
+    logs = [[(v.id.round, v.id.source, v.digest()) for v in d] for d in sim.deliveries]
+    if logs != ref["logs"]:
+        bad = [i for i, (a, b) in enumerate(zip(logs, ref["logs"])) if a != b]
+        fail(f"sharded consensus: logs differ from the device run's at views {bad[:10]}")
+    if oracle._sigma != ref["sigma"] or msgs != ref["msgs"] or (
+            [p.decided_wave for p in sim.processes] != ref["decided"]):
+        fail("sharded consensus: leaders, messages or decided waves differ from the device run")
+    applied = sum(p.metrics.verify_sigs_total for p in sim.processes)
+    st = pipe.stats()
+    print(f"consensus with verifier='sharded' ({shared.mesh!r}): {calls} runs, logs of all {n} "
+          f"views, {len(oracle._sigma)} leaders and decided waves byte-identical to the device "
+          f"run; wall {wall:.2f} s (device run {ref['wall']:.2f} s); {applied / wall:.0f} applied "
+          f"sigs/s; {pipe.dispatches} dispatches, mesh_devices {st['mesh_devices']}, shard_batch "
+          f"{st['shard_batch']}, shard_imbalance {st['shard_imbalance']}; launches {launches}; "
+          f"host split: {split_line(spent)}")
+    return launches
 
 
 if __name__ == "__main__":

@@ -216,7 +216,10 @@ class Simulation:
         "device" is :class:`~dag_rider_tpu_torch.verifier.cuda.CUDAVerifier`
         on ``device`` (``cuda`` unless the caller passes ``"cpu"``, the
         plain torch path), and the certificate verifier's MSM and pairing
-        run there too. ``cert_msm`` None is the port's default, "device";
+        run there too. "sharded" is
+        :class:`~dag_rider_tpu_torch.parallel.sharded_verifier.ShardedCUDAVerifier`
+        over ``mesh_from_env()`` (``DAGRIDER_MESH`` entries; a CPU mesh when
+        ``device`` is "cpu"). ``cert_msm`` None is the port's default, "device";
         ``cert_pair`` None reads DAGRIDER_CERT_PAIR when it is set and is
         "device" otherwise."""
         from dag_rider_tpu_torch.verifier.base import (
@@ -225,12 +228,7 @@ class Simulation:
             VertexSigner,
         )
 
-        if kind == "sharded":
-            raise ValueError(
-                'verifier "sharded" is not ported yet (ROADMAP Queue 1 '
-                'item 4: the multi-GPU verifier); use "cpu" or "device"'
-            )
-        if kind not in ("cpu", "device"):
+        if kind not in ("cpu", "device", "sharded"):
             raise ValueError(f"unknown verifier {kind!r}")
         cert_signers = None
         cert_verifier = None
@@ -255,10 +253,18 @@ class Simulation:
             from dag_rider_tpu_torch.verifier.cpu import CPUVerifier
 
             shared = CPUVerifier(reg)
-        else:
+        elif kind == "device":
             from dag_rider_tpu_torch.verifier.cuda import CUDAVerifier
 
             shared = CUDAVerifier(reg, device=device)
+        else:
+            from dag_rider_tpu_torch.parallel.mesh import mesh_from_env
+            from dag_rider_tpu_torch.parallel.sharded_verifier import (
+                ShardedCUDAVerifier,
+            )
+
+            mesh = mesh_from_env("cuda" if device is None else device)
+            shared = ShardedCUDAVerifier(reg, mesh)
         if signer_factory is None:
             signers = [VertexSigner(s) for s in seeds]
             signer_factory = lambda i: signers[i]  # noqa: E731

@@ -102,6 +102,28 @@ def window_sums(nibbles: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return G.tree_sum_xyz381(lanes, nibbles.shape[0])
 
 
+def tree_reduce(acc: torch.Tensor) -> torch.Tensor:
+    """Pairwise-fold a batch of t packed point sets [t, 99, N] to
+    [1, 99, N] with :func:`cuda_group381.padd381_xx`, any t >= 1: each
+    level adds the second half to the first (``acc[:h] + acc[h:2h]``) and
+    an odd count carries its last set into the next level, as the JAX
+    ``tree_reduce`` pairs them."""
+    t, _, n = acc.shape
+    while t > 1:
+        half = t // 2
+
+        def lanes(x):  # [h, 99, N] -> limb-major [99, h * N]
+            return x.permute(1, 0, 2).reshape(ROWS, half * n)
+
+        folded = G.padd381_xx(lanes(acc[:half]), lanes(acc[half : 2 * half]))
+        folded = folded.reshape(ROWS, half, n).permute(1, 0, 2)
+        if t % 2:
+            folded = torch.cat([folded, acc[2 * half :]], dim=0)
+        acc = folded
+        t = half + t % 2
+    return acc
+
+
 def horner_combine(w: torch.Tensor) -> torch.Tensor:
     """sum_w 16^w S_w from packed window sums [99, 64] -> [99, 1]: 4
     doublings + 1 addition per window on a single point, in one

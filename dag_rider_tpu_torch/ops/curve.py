@@ -1,11 +1,14 @@
 """Edwards25519 group arithmetic on the limb field — the port's group layer.
 
-Torch twin of ``dag_rider_tpu/ops/curve.py`` (the parts the comb path
-uses): complete addition and doubling in extended homogeneous
-coordinates, branch-free RFC 8032 §5.1.3 decompression, projective
-equality, and the host-built fixed-base table for B. The formulas are the
-host oracle's (:mod:`dag_rider_tpu_torch.crypto.ed25519`), which is what
-makes device and host accept masks identical.
+Torch twin of ``dag_rider_tpu/ops/curve.py``: complete addition and
+doubling in extended homogeneous coordinates, branch-free RFC 8032
+§5.1.3 decompression, projective equality, the host-built fixed-base
+table for B, both scalar multiplications and the windowed verify
+equation (:func:`verify_core`, the ``comb=False`` oracle path). The
+formulas are the host oracle's (:mod:`dag_rider_tpu_torch.crypto.ed25519`),
+which is what makes device and host accept masks identical. ``lax.scan``
+and ``fori_loop`` become Python loops with the same order of operations,
+so every function returns the JAX twin's limbs.
 
 A "point" is a tuple (X, Y, Z, T) of limb tensors [..., 22]; x = X/Z,
 y = Y/Z, T = XY/Z.
@@ -81,13 +84,17 @@ def points_equal(p: Point, q: Point) -> torch.Tensor:
     return ex & ey
 
 
-def decompress(y: torch.Tensor, sign: torch.Tensor) -> Tuple[Point, torch.Tensor]:
+def decompress(
+    y: torch.Tensor, sign: torch.Tensor, pow22523=F.pow22523
+) -> Tuple[Point, torch.Tensor]:
     """Recover (x, y) from the y limbs + sign bit; returns (point, valid).
 
     Candidate root of u/v as u v^3 (u v^7)^((p-5)/8), then the host
     ``_recover_x`` decision tree, branch-free: no root -> invalid; x == 0
     with the sign bit set -> invalid; parity(x) != sign -> x := -x. The
     y < p check is the caller's (done on the host from the raw bytes).
+    ``pow22523`` is the root exponent's chain on [..., 22] limbs (the card
+    path passes the kernel's).
     """
     one = F.const("ONE", y.device).expand_as(y)
     y2 = F.square(y)
@@ -95,7 +102,7 @@ def decompress(y: torch.Tensor, sign: torch.Tensor) -> Tuple[Point, torch.Tensor
     v = F.add(F.mul(y2, F.const("D", y.device)), one)  # d y^2 + 1
     v3 = F.mul(F.square(v), v)
     v7 = F.mul(F.square(v3), v)
-    cand = F.mul(F.mul(u, v3), F.pow22523(F.mul(u, v7)))
+    cand = F.mul(F.mul(u, v3), pow22523(F.mul(u, v7)))
     vxx = F.mul(v, F.square(cand))
     root1 = F.eq(vxx, u)
     root2 = F.eq(vxx, F.neg(u))
@@ -142,3 +149,73 @@ def b_table() -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     if _B_TABLE is None:
         _B_TABLE = _build_b_table()
     return _B_TABLE
+
+
+# ---------------------------------------------------------------------------
+# Scalar multiplication
+# ---------------------------------------------------------------------------
+
+
+def _gather_point(table: Tuple[torch.Tensor, ...], idx: torch.Tensor) -> Point:
+    """table: per-coord tensors [..., 16, 22]; idx: integer [...] in [0, 16)."""
+    index = idx.long()[..., None, None].expand(*idx.shape, 1, F.LIMBS)
+    return tuple(torch.gather(coord, -2, index)[..., 0, :] for coord in table)
+
+
+def scalar_mul_var(nibbles: torch.Tensor, a: Point) -> Point:
+    """[k]A for per-element points A — 4-bit fixed windows, MSB first.
+
+    nibbles: integer [..., 64], little-endian (nibbles[..., 0] = k & 0xF).
+    252 doublings + 63 adds + 14 table-build adds, all batched."""
+    ident = identity(nibbles.shape[:-1], nibbles.device)
+    steps = [ident]  # window table T[d] = d * A, per coordinate [..., 16, 22]
+    for _ in range(15):
+        steps.append(padd(steps[-1], a))
+    table = tuple(torch.stack([s[c] for s in steps], dim=-2) for c in range(4))
+    acc = ident
+    for i in range(WINDOWS):
+        acc = pdouble(pdouble(pdouble(pdouble(acc))))
+        acc = padd(acc, _gather_point(table, nibbles[..., WINDOWS - 1 - i]))
+    return acc
+
+
+def scalar_mul_base(nibbles: torch.Tensor) -> Point:
+    """[s]B via the comb table: 64 adds, zero doublings.
+
+    nibbles: integer [..., 64] little-endian. acc = sum_i TABLE[i][s_i]."""
+    dev = nibbles.device
+    xs, ys, ts = (torch.as_tensor(t, device=dev) for t in b_table())
+    batch_shape = nibbles.shape[:-1]
+    one = F.const("ONE", dev).expand(*batch_shape, F.LIMBS)
+    acc = identity(batch_shape, dev)
+    for i in range(WINDOWS):
+        nib = nibbles[..., i].long()
+        acc = padd(acc, (xs[i][nib], ys[i][nib], one, ts[i][nib]))
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# The verify equation
+# ---------------------------------------------------------------------------
+
+
+def verify_core(
+    s_nibbles: torch.Tensor,
+    k_nibbles: torch.Tensor,
+    a_point: Point,
+    a_valid: torch.Tensor,
+    r_y: torch.Tensor,
+    r_sign: torch.Tensor,
+    prevalid: torch.Tensor,
+) -> torch.Tensor:
+    """Batched non-cofactored Ed25519 check: [s]B == R + [k]A.
+
+    Hashing (k), the s < L check and byte parsing happen on the host.
+    Returns the bool accept mask, ANDed with ``a_valid`` (the key
+    decompressed), R's decompression validity and ``prevalid`` (the host's
+    structural checks)."""
+    r_point, r_valid = decompress(r_y, r_sign)
+    lhs = scalar_mul_base(s_nibbles)
+    ka = scalar_mul_var(k_nibbles, a_point)
+    rhs = padd(r_point, ka)
+    return points_equal(lhs, rhs) & a_valid & r_valid & prevalid

@@ -197,6 +197,22 @@ def pow22523(z: torch.Tensor) -> torch.Tensor:
     return mul(nsquare(t1, 2), z)      # 2^252 - 3
 
 
+def invert(z: torch.Tensor) -> torch.Tensor:
+    """z^(p-2) = z^(2^255 - 21) (mod p); maps 0 -> 0."""
+    t0 = square(z)                     # 2
+    t1 = mul(z, nsquare(t0, 2))        # 9
+    t0m = mul(t0, t1)                  # 11
+    t1 = mul(t1, square(t0m))          # 31 = 2^5 - 1
+    t1 = mul(nsquare(t1, 5), t1)       # 2^10 - 1
+    t2 = mul(nsquare(t1, 10), t1)      # 2^20 - 1
+    t3 = mul(nsquare(t2, 20), t2)      # 2^40 - 1
+    t2 = mul(nsquare(t3, 10), t1)      # 2^50 - 1
+    t3 = mul(nsquare(t2, 50), t2)      # 2^100 - 1
+    t4 = mul(nsquare(t3, 100), t3)     # 2^200 - 1
+    t2 = mul(nsquare(t4, 50), t2)      # 2^250 - 1
+    return mul(nsquare(t2, 5), t0m)    # 2^255 - 32 + 11 = 2^255 - 21
+
+
 # --- canonicalization / predicates ----------------------------------------
 
 

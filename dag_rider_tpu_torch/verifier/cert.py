@@ -3,7 +3,8 @@
 The port's copy of the round-certificate half of
 ``dag_rider_tpu/verifier/cert.py``. The round's designated aggregator sums
 the quorum's per-vertex BLS signatures into one 48-byte G1 point (through
-the MSM seam: the card with ``msm="device"``, the host group law with
+the MSM seam: the card with ``msm="device"``, the mesh with
+``msm="sharded"`` (``parallel/msm.py``), the host group law with
 ``msm="host"``), and every receiver checks the whole round with ONE
 aggregate pairing
 
@@ -61,11 +62,13 @@ class CertVerifier:
     Args:
         registry: the cluster PKI; must carry ``bls_public_keys``.
         quorum: minimum signer count a certificate must cover (2f+1).
-        msm: "device" (the default: the G1 MSM of ``ops.bls_msm``) or
-            "host" (the group law, the oracle, only when asked for);
-            bit-identical aggregates.
-        device: where a "device" MSM and a "device" pairing run: ``cuda``
-            unless the caller passes ``"cpu"`` (the plain torch path).
+        msm: "device" (the default: the G1 MSM of ``ops.bls_msm``),
+            "sharded" (``parallel.msm.ShardedMSM`` over every card, or 8
+            CPU entries when ``device`` is "cpu") or "host" (the group law,
+            the oracle, only when asked for); bit-identical aggregates.
+        device: where a "device" or "sharded" MSM and a "device" pairing
+            run: ``cuda`` unless the caller passes ``"cpu"`` (the plain
+            torch path).
             Raises at construction when CUDA is asked for and there is no
             card.
         pair: "device" (the Miller product on ``device``, the final
@@ -87,14 +90,17 @@ class CertVerifier:
                 "CertVerifier needs a registry with BLS certificate keys "
                 "(KeyRegistry.generate_with_cert)"
             )
-        if msm not in ("host", "device"):
-            raise ValueError(f'cert MSM must be "host" or "device", got {msm!r}')
+        if msm not in ("host", "device", "sharded"):
+            raise ValueError(
+                f'cert MSM must be "host", "device" or "sharded", got {msm!r}'
+            )
         self.pair = _resolve_pair(pair)
         self.registry = registry
         self.quorum = int(quorum)
         self.msm = msm
-        on_device = msm == "device" or self.pair == "device"
+        on_device = msm != "host" or self.pair == "device"
         self.device = bls_msm.resolve_device(device) if on_device else None
+        self._sharded = None  # the ShardedMSM of msm="sharded", built at first use
         self._verdicts: dict = {}
         #: Optional callback fired once per certificate, on its FIRST
         #: successful verification (memo hits stay silent — the event
@@ -113,6 +119,13 @@ class CertVerifier:
     def _sum_points(self, points: Sequence[tuple]) -> Optional[tuple]:
         if self.msm == "device":
             return bls_msm.sum_points(points, device=self.device)
+        if self.msm == "sharded":
+            if self._sharded is None:
+                from dag_rider_tpu_torch.parallel.mesh import make_mesh
+                from dag_rider_tpu_torch.parallel.msm import ShardedMSM
+
+                self._sharded = ShardedMSM(make_mesh(device=self.device.type))
+            return self._sharded.sum_points(points)
         return bls.g1_sum(points)
 
     def aggregate(self, sigs: Sequence[bytes]) -> Optional[bytes]:

@@ -1,8 +1,9 @@
 """CUDA Verifier backend — one DAG round per device dispatch on the H100.
 
-Port of ``dag_rider_tpu/verifier/tpu.py`` (``TPUVerifier``) on the comb
-path, with its whole host half. The work split is the reference's: all
-ordering stays on the host, the device returns only accept bits.
+Port of ``dag_rider_tpu/verifier/tpu.py`` (``TPUVerifier``): the comb
+path, the windowed oracle path (``comb=False``), and the whole host half.
+The work split is the reference's: all ordering stays on the host, the
+device returns only accept bits.
 
 - host (:meth:`CUDAVerifier._prepare`): byte parsing, the s < L
   malleability check, the R.y < p canonicity check, the SHA-512 challenge
@@ -15,7 +16,12 @@ ordering stays on the host, the device returns only accept bits.
   engine (``verifier/prep.py``);
 - device (:func:`device_verify_comb`, :func:`device_verify_comb8`): the
   comb gather, the one-launch tree of padd kernels, and the finish kernel
-  (R decompression, R + [k]A, the projective equality).
+  (R decompression, R + [k]A, the projective equality);
+- the windowed path (``comb=False``, the differential oracle): host prep
+  packs the reference's nine arrays (nibbles, the key's limbs, flags) and
+  :func:`device_verify_windowed` runs ``ops/windowed.py`` (the padd and
+  pow22523 kernels, the walk from a CUDA graph; ``curve.verify_core`` on
+  the CPU).
 
 Batches pad to power-of-two buckets (padded rows are structurally invalid
 and come out False). :meth:`dispatch_batch` is composed of
@@ -42,7 +48,7 @@ import torch
 
 from dag_rider_tpu_torch import config
 from dag_rider_tpu_torch.crypto import ed25519
-from dag_rider_tpu_torch.ops import comb, field
+from dag_rider_tpu_torch.ops import comb, field, windowed
 from dag_rider_tpu_torch.utils import native
 from dag_rider_tpu_torch.verifier.base import (
     KeyRegistry,
@@ -177,6 +183,26 @@ def device_verify_comb8(
     )
 
 
+def device_verify_windowed(
+    s_nibbles: torch.Tensor,
+    k_nibbles: torch.Tensor,
+    a_x: torch.Tensor,
+    a_y: torch.Tensor,
+    a_t: torch.Tensor,
+    a_valid: torch.Tensor,
+    r_y: torch.Tensor,
+    r_sign: torch.Tensor,
+    prevalid: torch.Tensor,
+) -> torch.Tensor:
+    """The windowed path's device program over the nine prep arrays of
+    ``_prepare(comb=False)`` -> bool [B] (``ops/windowed.py``: the kernels
+    on a card, ``curve.verify_core`` on the CPU)."""
+    one = field.const("ONE", a_x.device).expand_as(a_x)
+    return windowed.verify(
+        s_nibbles, k_nibbles, (a_x, a_y, one, a_t), a_valid, r_y, r_sign, prevalid
+    )
+
+
 def resolve_device(device: Optional[torch.device | str]) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller asks
     for another. Raises when CUDA is asked for (or defaulted to) and
@@ -213,13 +239,14 @@ class Pending(NamedTuple):
 
 
 class CUDAVerifier(Verifier):
-    """Batched Ed25519 verification on the H100 (fixed-key comb path).
+    """Batched Ed25519 verification on the H100.
 
     ``device`` defaults to ``cuda``; ``device="cpu"`` runs the same
     program through the kernels' plain torch versions (the tests).
-    ``comb`` None reads ``DAGRIDER_COMB`` (default on); the windowed path
-    (``comb=False``) is not ported and raises. ``DAGRIDER_COMB_BITS`` picks
-    4-bit (the default) or 8-bit windows."""
+    ``comb`` None reads ``DAGRIDER_COMB`` (default on): the fixed-key comb
+    path; ``comb=False`` is the windowed path, the reference's
+    differential oracle, with the same accept masks.
+    ``DAGRIDER_COMB_BITS`` picks 4-bit (the default) or 8-bit comb windows."""
 
     def __init__(
         self,
@@ -229,12 +256,7 @@ class CUDAVerifier(Verifier):
     ):
         if comb is None:
             comb = config.env_flag("DAGRIDER_COMB")
-        if not comb:
-            raise NotImplementedError(
-                "the windowed verify path (comb=False / DAGRIDER_COMB=0) is not "
-                "ported yet (ROADMAP Queue 1 item 3); the port verifies on the "
-                "comb path"
-            )
+        self._comb = bool(comb)
         bits_env = config.env_choice("DAGRIDER_COMB_BITS")
         self._comb_bits = int(bits_env) if bits_env else 4
         self.device = resolve_device(device)
@@ -328,6 +350,18 @@ class CUDAVerifier(Verifier):
                 sig_raw[idx, :32], pk_raw[idx], [msgs[j] for j in idx],
                 use_native=_native_enabled(),
             )
+        if not self._comb:
+            s_nib, k_nib, a_x, a_y, a_t, valid, r_y, r_sg, pv = dest
+            s_nib[lo:hi] = nibbles_batch(np.where(prevalid[:, None], s_raw, 0))
+            k_nib[lo:hi] = nibbles_batch(k_raw)
+            a_x[lo:hi] = self._a_x[src]
+            a_y[lo:hi] = self._a_y[src]
+            a_t[lo:hi] = self._a_t[src]
+            valid[lo:hi] = self._a_valid[src] & prevalid
+            r_y[lo:hi] = bytes_to_limbs_batch(r_raw)
+            r_sg[lo:hi] = r_sign
+            pv[lo:hi] = prevalid
+            return
         u8, i32 = dest
         u8 = u8[lo:hi]
         i32 = i32[lo:hi]
@@ -351,15 +385,31 @@ class CUDAVerifier(Verifier):
         vertices: Sequence,
         size: int,
         out: Optional[Tuple[np.ndarray, np.ndarray]] = None,
-    ) -> Tuple[np.ndarray, np.ndarray]:
+    ) -> Tuple[np.ndarray, ...]:
         """Host prep of one padded dispatch of ``size`` rows -> (u8
-        [size, 131 or 67], i32 [size, 23]). Every row and column is
-        overwritten, so the caller may hand in a reused staging pair
-        (``out``). The rows fill through the prep engine: one block when
-        ``prep_workers`` is 1 or the dispatch is small, else up to
+        [size, 131 or 67], i32 [size, 23]) on the comb path; on the
+        windowed path the reference's nine arrays (s and k nibbles
+        [size, 64], the key's x, y, t limbs [size, 22], key valid, R.y limbs,
+        R sign, prevalid), freshly allocated. Every row and column is
+        overwritten, so the comb path's caller may hand in a reused staging
+        pair (``out``). The rows fill through the prep engine: one block
+        when ``prep_workers`` is 1 or the dispatch is small, else up to
         ``prep_workers`` row blocks filled concurrently into the same
         arrays; the partition is invisible in the bytes."""
-        if out is not None:
+        if not self._comb:
+            limbs = (size, field.LIMBS)
+            dest = (
+                np.empty((size, 64), dtype=np.int32),
+                np.empty((size, 64), dtype=np.int32),
+                np.empty(limbs, dtype=np.int32),
+                np.empty(limbs, dtype=np.int32),
+                np.empty(limbs, dtype=np.int32),
+                np.empty(size, dtype=bool),
+                np.empty(limbs, dtype=np.int32),
+                np.empty(size, dtype=np.int32),
+                np.empty(size, dtype=bool),
+            )
+        elif out is not None:
             dest = out
         else:
             dest = (
@@ -465,6 +515,11 @@ class CUDAVerifier(Verifier):
         """The comb entry point for this verifier's window width."""
         return device_verify_comb8 if self._comb_bits == 8 else device_verify_comb
 
+    def _windowed_dispatch(self, args: tuple) -> torch.Tensor:
+        """The ``comb=False`` oracle path's device call over the nine prep
+        arrays."""
+        return device_verify_windowed(*(self._put(a) for a in args))
+
     def _note_dispatch(self, size: int, count: int) -> None:
         """Per-dispatch gauge hook (a multi-card subclass books shard
         balance)."""
@@ -472,10 +527,13 @@ class CUDAVerifier(Verifier):
     def _enqueue(self, args: tuple, count: int) -> Pending:
         """Copy one prepped batch to the device and launch its program on
         the current stream, no sync."""
-        u8, i32 = args
-        tables, b_tab = self._comb_tables_dev()
         t0 = time.perf_counter()
-        mask = self._comb_fn()(self._put(u8), self._put(i32), tables, b_tab)
+        if self._comb:
+            u8, i32 = args
+            tables, b_tab = self._comb_tables_dev()
+            mask = self._comb_fn()(self._put(u8), self._put(i32), tables, b_tab)
+        else:
+            mask = self._windowed_dispatch(args)
         event = None
         if mask.is_cuda:
             event = torch.cuda.Event()
@@ -490,7 +548,11 @@ class CUDAVerifier(Verifier):
         one all-padding dispatch at that size, which books none of the
         ``total_*`` counters. The counterpart of the reference's AOT
         compile. Returns the seconds spent (cumulative in
-        ``warmup_compile_s``); 0.0 when the size is already warm."""
+        ``warmup_compile_s``); 0.0 when the size is already warm, and on
+        the windowed path, which is never on the hot path (as in the
+        reference)."""
+        if not self._comb:
+            return 0.0
         size = self._round_bucket(int(bucket or self.fixed_bucket or _MIN_BUCKET))
         if size in self._warm:
             return 0.0
@@ -592,7 +654,8 @@ class CUDAVerifier(Verifier):
         ring slots are claimed strictly in chunk order."""
         size = self._size_for(len(vertices))
         t0 = time.perf_counter()
-        args = self._prepare(vertices, size, out=self._stage(size))
+        out = self._stage(size) if self._comb else None
+        args = self._prepare(vertices, size, out=out)
         return PreppedBatch(args, size, len(vertices), time.perf_counter() - t0)
 
     def prep_batch_async(self, vertices: Sequence):

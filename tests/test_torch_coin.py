@@ -265,7 +265,7 @@ def test_certificate_refusals(cert_keys):
     with pytest.raises(ValueError):
         CertVerifier(KeyRegistry.generate(4)[0], quorum=3)
     with pytest.raises(ValueError):
-        CertVerifier(reg, quorum=3, msm="sharded")
+        CertVerifier(reg, quorum=3, msm="gpu", device="cpu")  # no such MSM backend
 
 
 def test_cert_device_msm_without_card_raises(cert_keys, monkeypatch):

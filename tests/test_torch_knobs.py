@@ -1,12 +1,16 @@
 """The port reads every verify and certificate knob where the reference does.
 
 One case per row of the knob table: each knob either takes the port's real
-branch (``DAGRIDER_COMB_BITS``, ``DAGRIDER_PREP_WORKERS``,
-``DAGRIDER_NATIVE``, ``DAGRIDER_CERT_SIGN``, ``DAGRIDER_CERT_PAIR``) or,
-where the branch is not ported yet, raises ``NotImplementedError`` naming
-its ROADMAP Queue 1 item — never a quiet fall-through to another route.
-The seams the port does not have yet name their current item as well.
+branch (``DAGRIDER_COMB``, ``DAGRIDER_COMB_BITS``, ``DAGRIDER_PREP_WORKERS``,
+``DAGRIDER_NATIVE``, ``DAGRIDER_CERT_SIGN``, ``DAGRIDER_CERT_PAIR``,
+``DAGRIDER_CERT_MSM``'s "sharded" value, ``DAGRIDER_MESH``) or, where the
+port has no such branch, raises — never a quiet fall-through to another
+route (``DAGRIDER_SHARDED_COMB_IMPL`` names JAX implementations). The seams
+the port does not have yet name their current ROADMAP Queue 1 item.
 """
+
+import warnings
+
 
 import pytest
 
@@ -17,6 +21,8 @@ from dag_rider_tpu_torch.consensus.simulator import Simulation
 from dag_rider_tpu_torch.core.types import Block, Vertex, VertexID
 from dag_rider_tpu_torch.crypto import bls12381 as bls
 from dag_rider_tpu_torch.epoch.manager import derive_epoch_keys
+from dag_rider_tpu_torch.parallel import mesh as M
+from dag_rider_tpu_torch.parallel.sharded_verifier import ShardedCUDAVerifier
 from dag_rider_tpu_torch.utils import native
 from dag_rider_tpu_torch.verifier.base import KeyRegistry, VertexSigner
 from dag_rider_tpu_torch.verifier.cert import CertVerifier
@@ -37,11 +43,12 @@ def cert_reg():
 
 
 def test_comb_off_raises_naming_the_windowed_path(reg, monkeypatch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        CUDAVerifier(reg, comb=False, device="cpu")
+    """comb=False and DAGRIDER_COMB=0 select the windowed path: its nine
+    prep arrays, no staging, no warmup."""
+    v = CUDAVerifier(reg, comb=False, device="cpu")
+    assert not v._comb and len(v.prepare_batch([])) == 9 and v.warmup() == 0.0
     monkeypatch.setenv("DAGRIDER_COMB", "0")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        CUDAVerifier(reg, device="cpu")
+    assert len(CUDAVerifier(reg, device="cpu").prepare_batch([])) == 9
     # the explicit argument beats the knob
     assert CUDAVerifier(reg, comb=True, device="cpu").u8_cols == 131
 
@@ -162,7 +169,62 @@ def test_unported_seams_name_their_item():
         Simulation(Config(n=4, coin="round_robin", lanes=True))
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         Simulation(cfg).attach_mempools()
-    with pytest.raises(ValueError, match="Queue 1 item 4"):
-        Simulation(cfg, verifier="sharded")
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         derive_epoch_keys(None, 4, 2, "dkg", 0)
+
+
+# -- DAGRIDER_MESH / DAGRIDER_SHARDED_COMB_IMPL -------------------------------
+
+
+def test_mesh_knob_sizes_and_clamps(monkeypatch):
+    """DAGRIDER_MESH is read in mesh_from_env: a CPU mesh takes it as
+    given (8 when unset); on the card a request above the visible count
+    clamps to it with the reference's warning."""
+    monkeypatch.delenv("DAGRIDER_MESH", raising=False)
+    assert M.mesh_from_env("cpu").size == 8
+    monkeypatch.setenv("DAGRIDER_MESH", "3")
+    assert M.mesh_from_env("cpu").size == 3
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        M.mesh_from_env()
+    monkeypatch.setattr(M.torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(M.torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setenv("DAGRIDER_MESH", "4")
+    with pytest.warns(UserWarning, match="DAGRIDER_MESH=4 but only 1 device"):
+        mesh = M.mesh_from_env()
+    assert mesh.devices == (M.torch.device("cuda", 0),) and not mesh.virtual
+    monkeypatch.delenv("DAGRIDER_MESH")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert M.mesh_from_env().size == 1
+
+
+def test_sharded_comb_impl_knob_raises_for_jax_names(reg, monkeypatch):
+    mesh = M.make_mesh(2, device="cpu")
+    monkeypatch.setenv("DAGRIDER_SHARDED_COMB_IMPL", "")
+    assert ShardedCUDAVerifier(reg, mesh, comb=False).mesh_devices == 2
+    for impl in ("jnp", "pallas", "pallas_interpret"):
+        monkeypatch.setenv("DAGRIDER_SHARDED_COMB_IMPL", impl)
+        with pytest.raises(ValueError, match="DAGRIDER_SHARDED_COMB_IMPL"):
+            ShardedCUDAVerifier(reg, mesh)
+
+
+# -- CertVerifier(msm="sharded") ----------------------------------------------
+
+
+def test_cert_msm_sharded_gives_the_host_bytes(cert_reg):
+    """msm="sharded" sums the certificate on the mesh (8 CPU entries
+    here): the bytes of msm="host" and msm="device"; Simulation passes
+    cert_msm through."""
+    from dag_rider_tpu_torch.verifier.base import CertSigner
+
+    _, _, sks = KeyRegistry.generate_with_cert(4)
+    entries = [(i, bytes([i]) * 32, CertSigner(sks[i]).sign_digest(bytes([i]) * 32))
+               for i in range(3)]
+    certs = {m: CertVerifier(cert_reg, 3, msm=m, pair="host", device="cpu").make_certificate(
+        5, entries) for m in ("host", "device", "sharded")}
+    assert certs["sharded"] == certs["host"] == certs["device"] is not None
+    sim = Simulation(Config(n=4, coin="round_robin"), verifier="cpu", cert=True,
+                     cert_msm="sharded", cert_pair="host", device="cpu")
+    assert (sim.cert_verifier.msm, sim.cert_verifier.device.type) == ("sharded", "cpu")
+    with pytest.raises(ValueError, match='"host", "device" or "sharded"'):
+        CertVerifier(cert_reg, 3, msm="gpu", device="cpu")
