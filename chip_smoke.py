@@ -134,13 +134,29 @@ signatures). The script:
 12. consensus with ``verifier="sharded"`` (after phase 9): phase 8's
    cluster and number of ``run`` calls, byte-identical to phase 8's
    device run, launches exact, nothing contained;
-13. prints ``{"device_programs": [...]}`` (the pairing's, the ladder's, the
+13. the host layer's paths (phases A-F, each with the counters set to 0
+   just before its runs and read just after): A, client transactions
+   into DAG-Rider at n = 256 through one ``Mempool`` a process
+   (``bench.py``'s ``mempool_e2e`` load on the wall clock) with the
+   shared ``CUDAVerifier`` and card-MSM coins: agreement, no lost or
+   duplicate transaction, launches exact; committed tx/s, submit→deliver
+   p50/p99, batch fill, the host split and the card's busy share (CUDA
+   profiler), then a traced rerun whose ``obs.report`` attribution and
+   Perfetto trace (``build/ingest_trace.json``) it prints; B, the mempool
+   under chaos at n = 64 byte-identical to its host-oracle run; C,
+   dissemination lanes against inline payloads on the card; D, the
+   Byzantine suite at n = 32 (``garbage_coin``'s MSMs on the card); E,
+   checkpoint round trip and attested snapshot join at n = 64 (span
+   pairings on the card, a tampered blob refused); F, DKG key rotation at
+   n = 4 with the coins on the card, byte-identical to host coins;
+14. prints ``{"device_programs": [...]}`` (the pairing's, the ladder's, the
    windowed program's, ``wave_commit_votes``' and the sharded MSM's times
    and bounds), ``{"kernels": [...]}`` (with each kernel's
    ``consensus_launches``, ``consensus_cert_launches``,
-   ``windowed_launches``, ``n1024_launches`` and ``sharded_launches``; the
-   tree's row carries its M = 32 reading under ``at_m32``), the card line
-   again, and as the last line ``{"ok": true, "device": {...}}``.
+   ``windowed_launches``, ``n1024_launches``, ``sharded_launches`` and
+   ``host_layer_launches`` per phase A-F; the tree's row carries its M = 32
+   reading under ``at_m32``), the card line again, and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. Run it from the root of
 the repository: ``python3 chip_smoke.py`` (one card, no arguments).
@@ -183,6 +199,39 @@ CERT_BLOCKS = 14  # blocks a process submits in the certificate cell: 14 rounds,
 N1024 = 1024  # BASELINE.json config #5: "1024-node full-wave MSM"
 N1024_ROUNDS = 4  # bench.py's verify1024 rung: 4 rounds of 1,024 signed vertices
 MSM_T = 1024  # bench.py's msm1024 rung
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# phases A-F (the host layer's paths): the reference rungs' own settings
+INGEST_N = 256  # bench.py's mempool_e2e rung (:2872-2931): n, load and drain
+INGEST_LOAD_S = 20.0
+INGEST_DRAIN_S = 30.0
+INGEST_TRACE_S = 3.0  # the traced rerun's load
+INGEST_TRACE_DRAIN_S = 15.0  # and its drain
+INGEST_TRACE_SAMPLE = 0.05  # DAGRIDER_TRACE_SAMPLE of the traced rerun
+INGEST_TRACE_RING = 262144  # DAGRIDER_TRACE_RING of the traced rerun
+CHAOS_N = 64  # bench.py's mempool_chaos rung (:2935-2990)
+CHAOS_S = 0.25  # cut from the rung's 1 s of virtual load to fit the time limit
+LANE_MATRIX = ((4, 21, None, 12), (16, 22, "equivocate", 12), (16, 23, "lane_withhold", 12),
+               (32, 24, None, 10))  # bench.py's lanes identity matrix (:1007-1075)
+LANE_PUMPS = ("scalar", "vector")
+BYZ_N = 32  # bench.py's byzantine rung plan (:3234-3267)
+BYZ_PLAN = (
+    {},
+    dict(wan="partition", min_waves=1, min_each=1),
+    dict(adversary="equivocate", min_waves=1, min_each=0),
+    dict(adversary="equivocate_split", cycles=12, min_waves=1, min_each=0),
+    dict(adversary="withhold", min_waves=1, min_each=0),
+    dict(adversary="invalid_edges", min_waves=1, min_each=0),
+    # cut from the rung's 4 cycles to fit the time limit: each filtered wave
+    # pays host pairings for every share
+    dict(adversary="garbage_coin", cycles=2, min_waves=1, min_each=0),
+)
+SNAP_N = 64  # phase E's committee
+SNAP_SPAN = 4  # cert_span
+SNAP_GC = 16  # gc_depth: the window a snapshot carries
+SNAP_BLOCKS = 24  # blocks a process submits before the snapshot: past the GC depth
+SNAP_MORE = 4  # blocks a process submits for the run on
+ROTATE_N = 4  # bench.py's rotate_ab cell (:2025-2080); DKG host math grows as n^3
 
 # Published H100 SXM peak memory rate (NVIDIA data sheet), used for the
 # byte side of each kernel's bound.
@@ -261,6 +310,7 @@ def main() -> int:
     import numpy as np
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -546,6 +596,7 @@ def main() -> int:
     ref = consensus_phase()
     cert_launches = consensus_cert_phase()
     sharded_launches = sharded_consensus_phase(ref)
+    host_layer = host_layer_phases()
     for row in report:
         name = row["name"]
         row["consensus_launches"] = ref["launches"].get(name, 0)
@@ -553,7 +604,9 @@ def main() -> int:
         row["sharded_launches"] = sharded_launches.get(name, 0)
         row["windowed_launches"] = windowed_launches.get(name, 0)
         row["n1024_launches"] = n1024_launches.get(name, 0)
+        row["host_layer_launches"] = {k: v.get(name, 0) for k, v in host_layer.items()}
 
+    print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"device_programs": programs}))
     print(json.dumps({"kernels": report}))
     print(card)
@@ -890,6 +943,32 @@ def read_launch_counters() -> dict:
     return {**CG.LAUNCHES, **G.LAUNCHES, **cuda_field.LAUNCHES}
 
 
+def timed_cluster(cfg, keys, signers, msm, spent, **sim_kw):
+    """``(sim, oracle)``: the port's ``Simulation`` over ``cfg`` with threshold
+    coins over one oracle's books (``shared_coin_factory``) and the given
+    vertex signers, their host time booked in ``spent`` (vertex signing,
+    coin share signing, the coin's combine with its pairing check);
+    ``sim_kw`` goes to ``Simulation``."""
+    from dag_rider_tpu_torch.consensus.coin import ThresholdCoin
+    from dag_rider_tpu_torch.consensus.simulator import Simulation
+
+    make, oracle = shared_coin_factory(ThresholdCoin, keys, cfg.n, msm=msm)
+
+    def coin(i):
+        c = make(i)
+        c.my_share = timed(c.my_share, spent, "coin share signing")
+        c._try_aggregate = timed(c._try_aggregate, spent, "coin combine + pairing check")
+        return c
+
+    class Signer:
+        def __init__(self, inner):
+            self.sign_vertex = timed(inner.sign_vertex, spent, "vertex signing")
+
+    wrapped = [Signer(s) for s in signers]
+    sim = Simulation(cfg, coin_factory=coin, signer_factory=lambda i: wrapped[i], **sim_kw)
+    return sim, oracle
+
+
 def drive_cluster(cfg, keys, signers, msm, *, verifier=None, cert=False, per_process=2,
                   calls=None, budget=None, until_quiet=False, named=None):
     """Build the port's cluster, run it, and split its host time: vertex
@@ -906,9 +985,6 @@ def drive_cluster(cfg, keys, signers, msm, *, verifier=None, cert=False, per_pro
     (after the comb tables exist). The run loop: ``calls`` calls if given,
     else until every view decided ``CONS_WAVES`` waves, or with
     ``until_quiet`` until a call delivers nothing."""
-    from dag_rider_tpu_torch.consensus.coin import ThresholdCoin
-    from dag_rider_tpu_torch.consensus.simulator import Simulation
-
     n = cfg.n
     budget = n * (n - 1) if budget is None else budget
     keys_spent = ["vertex signing", "coin share signing", "coin combine + pairing check"]
@@ -916,23 +992,9 @@ def drive_cluster(cfg, keys, signers, msm, *, verifier=None, cert=False, per_pro
         keys_spent += ["certificate share signing", "certificate aggregation",
                        "certificate pairing checks"]
     spent = dict.fromkeys(keys_spent, 0.0)
-    make, oracle = shared_coin_factory(ThresholdCoin, keys, n, msm=msm)
-
-    def coin(i):
-        c = make(i)
-        c.my_share = timed(c.my_share, spent, "coin share signing")
-        c._try_aggregate = timed(c._try_aggregate, spent, "coin combine + pairing check")
-        return c
-
-    class Signer:
-        def __init__(self, inner):
-            self.sign_vertex = timed(inner.sign_vertex, spent, "vertex signing")
-
-    wrapped = [Signer(s) for s in signers]
     cert_msm_sizes = []
     if cert:
-        sim = Simulation(cfg, coin_factory=coin, verifier="device", cert=True,
-                         signer_factory=lambda i: wrapped[i])
+        sim, oracle = timed_cluster(cfg, keys, signers, msm, spent, verifier="device", cert=True)
         cv = sim.cert_verifier
         sim.processes[0].verifier.comb_tables()  # the build launches padd_xx
         for p in sim.processes:
@@ -948,12 +1010,11 @@ def drive_cluster(cfg, keys, signers, msm, *, verifier=None, cert=False, per_pro
         cv.make_certificate = timed(cv.make_certificate, spent, "certificate aggregation")
         cv._pairing_check = timed(cv._pairing_check, spent, "certificate pairing checks")
     elif named is not None:
-        sim = Simulation(cfg, coin_factory=coin, verifier=named,
-                         signer_factory=lambda i: wrapped[i])
+        sim, oracle = timed_cluster(cfg, keys, signers, msm, spent, verifier=named)
         sim.processes[0].verifier._comb_tables_dev()  # the build launches padd_xx
     else:
-        sim = Simulation(cfg, coin_factory=coin, verifier_factory=lambda i: verifier,
-                         signer_factory=lambda i: wrapped[i])
+        sim, oracle = timed_cluster(cfg, keys, signers, msm, spent,
+                                    verifier_factory=lambda i: verifier)
     monitor = sim.attach_invariant_monitor()
     sim.submit_blocks(per_process=per_process)
     msgs, done = 0, 0
@@ -1001,7 +1062,7 @@ def consensus_phase() -> dict:
 
     from dag_rider_tpu_torch import Config
     from dag_rider_tpu_torch.crypto import threshold as th
-    from dag_rider_tpu_torch.ops import bls_msm, comb, cuda_group as CG
+    from dag_rider_tpu_torch.ops import comb, cuda_group as CG
     from dag_rider_tpu_torch.verifier.base import KeyRegistry, VertexSigner
     from dag_rider_tpu_torch.verifier.cpu import CPUVerifier
     from dag_rider_tpu_torch.verifier.cuda import CUDAVerifier, unpack
@@ -1019,13 +1080,7 @@ def consensus_phase() -> dict:
           f"{time.perf_counter() - t0:.2f} s")
 
     msm_sizes, msm_walls = [], []
-
-    def card_msm(scalars, points):
-        msm_sizes.append(len(points))
-        t = time.perf_counter()
-        out = bls_msm.msm(scalars, points)
-        msm_walls.append(time.perf_counter() - t)
-        return out
+    card_msm = msm_recorder(msm_sizes, msm_walls)
 
     # -- the card run: counters at 0 just before, read just after --------------
     sim, oracle, msgs, calls, wall, spent, _ = drive_cluster(cfg, keys, signers, card_msm,
@@ -1040,8 +1095,7 @@ def consensus_phase() -> dict:
     contained = {k: rs[k] for k in ("poisoned_windows", "quarantined", "quarantine_rejected")}
     if any(contained.values()):
         fail(f"consensus: the verify pipeline contained faults {contained}")
-    want = {"tree_sum_xyzt": pipe.dispatches, "finish_check": pipe.dispatches,
-            "padd_xx": 0, "pow22523": 0, "field_mul": 0, **msm_launches(msm_sizes)}
+    want = want_launches(pipe.dispatches, msm_sizes)
     if pipe.dispatches <= 0 or not msm_sizes or launches != want:
         fail(f"consensus launches {launches}, want {want} ({pipe.dispatches} dispatches, "
              f"MSMs of {msm_sizes} points)")
@@ -1126,7 +1180,7 @@ def consensus_cert_phase() -> dict:
 
     from dag_rider_tpu_torch import Config
     from dag_rider_tpu_torch.crypto import bls12381 as bls, threshold as th
-    from dag_rider_tpu_torch.ops import bls_msm, bls_pairing
+    from dag_rider_tpu_torch.ops import bls_pairing
     from dag_rider_tpu_torch.verifier.base import KeyRegistry, VertexSigner
     from dag_rider_tpu_torch.verifier.cuda import CUDAVerifier
 
@@ -1142,14 +1196,7 @@ def consensus_cert_phase() -> dict:
     runs = {}
     for name, cert in (("off", False), ("on", True)):
         msm_sizes, msm_walls = [], []
-
-        def card_msm(scalars, points):
-            msm_sizes.append(len(points))
-            t = time.perf_counter()
-            out = bls_msm.msm(scalars, points)
-            msm_walls.append(time.perf_counter() - t)
-            return out
-
+        card_msm = msm_recorder(msm_sizes, msm_walls)
         bls_pairing.reset_host_routed()
         bls.reset_sign_host_rows()
         sim, oracle, msgs, calls, wall, spent, cert_sizes = drive_cluster(
@@ -1161,9 +1208,7 @@ def consensus_cert_phase() -> dict:
         contained = {k: rs[k] for k in ("poisoned_windows", "quarantined", "quarantine_rejected")}
         if any(contained.values()):
             fail(f"consensus ({name} certificates): the pipeline contained faults {contained}")
-        want = {"tree_sum_xyzt": pipe.dispatches, "finish_check": pipe.dispatches,
-                "padd_xx": 0, "pow22523": 0, "field_mul": 0,
-                **msm_launches(msm_sizes + cert_sizes)}
+        want = want_launches(pipe.dispatches, msm_sizes + cert_sizes)
         if pipe.dispatches <= 0 or launches != want:
             fail(f"consensus ({name} certificates): launches {launches}, want {want} "
                  f"({pipe.dispatches} dispatches, coin MSMs of {msm_sizes} points, "
@@ -1265,20 +1310,7 @@ class OpCount:
 def device_kernels(fn):
     """(kernels, device ms) the CUDA profiler saw while ``fn`` ran, or
     (None, None) when it records no device activity."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        if not evs:
-            return None, None
-        return len(evs), sum(e.device_time_total for e in evs) / 1e3
-    except Exception as exc:  # a machine may refuse CUPTI tracing; then not measured
-        print(f"  profiler: no device trace ({type(exc).__name__}: {exc})")
-        return None, None
+    return profiled(fn)[1:]
 
 
 def field381_imads() -> int:
@@ -2389,18 +2421,13 @@ def sharded_consensus_phase(ref) -> dict:
     byte-identical to it, nothing contained, launches exactly k per
     pipeline dispatch and the coin MSMs'. Returns its launches."""
     from dag_rider_tpu_torch import Config
-    from dag_rider_tpu_torch.ops import bls_msm
 
     n = CONS_N
     cfg = Config(n=n, coin="threshold_bls", propose_empty=True, gc_depth=24)
     msm_sizes = []
-
-    def card_msm(scalars, points):
-        msm_sizes.append(len(points))
-        return bls_msm.msm(scalars, points)
-
     sim, oracle, msgs, calls, wall, spent, _ = drive_cluster(
-        cfg, ref["keys"], ref["signers"], card_msm, named="sharded", calls=ref["calls"])
+        cfg, ref["keys"], ref["signers"], msm_recorder(msm_sizes, []), named="sharded",
+        calls=ref["calls"])
     launches = read_launch_counters()
     shared = sim.processes[0].verifier
     pipe = sim._verify_pipe
@@ -2409,8 +2436,7 @@ def sharded_consensus_phase(ref) -> dict:
     contained = {c: rs[c] for c in ("poisoned_windows", "quarantined", "quarantine_rejected")}
     if any(contained.values()):
         fail(f"sharded consensus: the pipeline contained faults {contained}")
-    want = {"tree_sum_xyzt": pipe.dispatches * k, "finish_check": pipe.dispatches * k,
-            "padd_xx": 0, "pow22523": 0, "field_mul": 0, **msm_launches(msm_sizes)}
+    want = want_launches(pipe.dispatches * k, msm_sizes)
     if pipe.dispatches <= 0 or launches != want:
         fail(f"sharded consensus: launches {launches}, want {want}")
     logs = [[(v.id.round, v.id.source, v.digest()) for v in d] for d in sim.deliveries]
@@ -2429,6 +2455,727 @@ def sharded_consensus_phase(ref) -> dict:
           f"{st['shard_batch']}, shard_imbalance {st['shard_imbalance']}; launches {launches}; "
           f"host split: {split_line(spent)}")
     return launches
+
+
+# -- phases A-F: the mempool front door, lanes, Byzantine suite, snapshots, DKG
+
+
+def msm_recorder(sizes: list, walls: list):
+    """A coin ``msm`` that runs ``bls_msm.msm`` on the card and records each
+    MSM's point count and wall."""
+    from dag_rider_tpu_torch.ops import bls_msm
+
+    def card_msm(scalars, points):
+        sizes.append(len(points))
+        t = time.perf_counter()
+        out = bls_msm.msm(scalars, points)
+        walls.append(time.perf_counter() - t)
+        return out
+
+    return card_msm
+
+
+@contextlib.contextmanager
+def recorded_msms(sizes: list):
+    """Route ``bls_msm.msm`` through a recorder of each MSM's point count
+    for a block: coins built inside it (``msm="device"``) resolve the
+    recorder, which calls the card's MSM."""
+    from dag_rider_tpu_torch.ops import bls_msm
+
+    orig = bls_msm.msm
+
+    def msm(scalars, points, **kw):
+        sizes.append(len(points))
+        return orig(scalars, points, **kw)
+
+    bls_msm.msm = msm
+    try:
+        yield
+    finally:
+        bls_msm.msm = orig
+
+
+def profiled(fn):
+    """``(fn(), kernels, device ms)``: ``fn`` run under the CUDA profiler;
+    kernels and ms are None when the profiler records no device activity
+    (``fn`` then runs all the same)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.__enter__()
+    except Exception as exc:  # a machine may refuse CUPTI tracing; then not measured
+        print(f"  profiler: no device trace ({type(exc).__name__}: {exc})")
+        return fn(), None, None
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        prof.__exit__(None, None, None)
+    try:
+        evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    except Exception as exc:  # the trace could not be read back; then not measured
+        print(f"  profiler: no device trace ({type(exc).__name__}: {exc})")
+        evs = []
+    if not evs:
+        return out, None, None
+    return out, len(evs), sum(e.device_time_total for e in evs) / 1e3
+
+
+def want_launches(dispatches: int, msm_sizes) -> dict:
+    """The launches of ``dispatches`` comb verify dispatches and MSMs over
+    ``msm_sizes`` points: one ``tree_sum_xyzt`` and one ``finish_check`` a
+    dispatch, the MSMs' ``padd381_xx``/``horner381``, nothing else."""
+    return {"tree_sum_xyzt": dispatches, "finish_check": dispatches, "padd_xx": 0,
+            "pow22523": 0, "field_mul": 0, **msm_launches(msm_sizes)}
+
+
+def check_contained(pipe, what: str) -> None:
+    rs = pipe.resilience_stats()
+    contained = {k: rs[k] for k in ("poisoned_windows", "quarantined", "quarantine_rejected")}
+    if any(contained.values()):
+        fail(f"{what}: the verify pipeline contained faults {contained}")
+
+
+def add_launches(total: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def ingest_cluster(keys, signers, card_ver, spent, msm_sizes, msm_walls):
+    """Phase A's cluster and load: the port's ``Simulation`` at ``INGEST_N``
+    with the shared ``CUDAVerifier`` and card-MSM threshold coins over one
+    oracle's books, fronted by one ``Mempool`` a process, and the
+    ``mempool_e2e`` load driven on the wall clock. The mempools' admission
+    and batching time lands in ``spent``."""
+    from dag_rider_tpu_torch import Config
+    from dag_rider_tpu_torch.config import MempoolConfig
+    from dag_rider_tpu_torch.mempool.loadgen import ClusterLoadDriver, LoadGenerator
+
+    cfg = Config(n=INGEST_N, coin="threshold_bls", propose_empty=True, gc_depth=24)
+    sim, oracle = timed_cluster(cfg, keys, signers, msm_recorder(msm_sizes, msm_walls), spent,
+                                verifier_factory=lambda i: card_ver)
+    gen = LoadGenerator(clients=32, rate=4000.0, tx_bytes=32, seed=10, profile="poisson")
+    drv = ClusterLoadDriver(sim, gen, mcfg=MempoolConfig(cap=65536, batch_bytes=4096), wall=True)
+    for mp in drv.mempools:
+        mp.submit = timed(mp.submit, spent, "admission and batching")
+        mp.build_blocks = timed(mp.build_blocks, spent, "admission and batching")
+    monitor = sim.attach_invariant_monitor()
+    return sim, oracle, drv, monitor
+
+
+def ingest_phase() -> dict:
+    """Phase A: client transactions into DAG-Rider at n = 256 through the
+    mempool front door (``bench.py``'s ``mempool_e2e`` rung: 32 clients,
+    4,000 tx/s Poisson, 32-byte transactions, ``cap`` 65,536,
+    ``batch_bytes`` 4,096, 20 s of load and a drain of at most 30 s, on the
+    wall clock), with the shared ``CUDAVerifier`` and card-MSM threshold
+    coins in place of the rung's null verifier. Fails unless the views
+    agree, no accepted transaction is lost or delivered twice, something
+    committed, the launches are exactly those of the dispatches and MSMs
+    that ran, and nothing was contained. Prints committed tx/s,
+    submit→deliver p50/p99, batch fill, the host split and the card's busy
+    share (CUDA profiler); then a shorter traced run (``DAGRIDER_TRACE=1``)
+    whose ``obs.report`` attribution and Perfetto trace it prints and
+    writes under ``build/``. Returns the main run's launches."""
+    import torch
+
+    from dag_rider_tpu_torch.crypto import threshold as th
+    from dag_rider_tpu_torch.obs import export, report as obs_report
+    from dag_rider_tpu_torch.verifier.base import KeyRegistry, VertexSigner
+    from dag_rider_tpu_torch.verifier.cuda import CUDAVerifier
+
+    n = INGEST_N
+    t_phase = time.perf_counter()
+    keys = th.ThresholdKeys.generate(n, n // 3 + 1)
+    reg, seeds = KeyRegistry.generate(n)
+    signers = [VertexSigner(s) for s in seeds]
+    card_ver = CUDAVerifier(reg)
+    card_ver.comb_tables()  # the build launches padd_xx
+    torch.cuda.synchronize()
+    keys_spent = ["admission and batching", "vertex signing", "coin share signing",
+                  "coin combine + pairing check"]
+    spent = dict.fromkeys(keys_spent, 0.0)
+    msm_sizes, msm_walls = [], []
+    sim, oracle, drv, monitor = ingest_cluster(keys, signers, card_ver, spent, msm_sizes,
+                                               msm_walls)
+    load_s, drain_s = INGEST_LOAD_S, INGEST_DRAIN_S
+    print(f"ingest set-up (n {n}): keys, device tables and {n} mempools "
+          f"{time.perf_counter() - t_phase:.2f} s")
+    disp0 = card_ver.total_dispatches
+    reset_launch_counters()
+    t = time.perf_counter()
+    rep, kernels, device_ms = profiled(lambda: drv.run(load_s, drain_s=drain_s))
+    wall = time.perf_counter() - t
+    launches = read_launch_counters()
+    dispatches = card_ver.total_dispatches - disp0
+    sim.check_agreement()
+    if monitor.observed == 0:
+        fail("ingest: the invariant monitor observed no delivery")
+    audit = rep["audit"]
+    if audit["lost"] or audit["duplicates"]:
+        fail(f"ingest: audit {audit}; want no lost and no duplicate transaction")
+    if rep["committed_tx"] <= 0:
+        fail(f"ingest: nothing committed: {rep}")
+    pipe = sim._verify_pipe
+    check_contained(pipe, "ingest")
+    want = want_launches(dispatches, msm_sizes)
+    if dispatches <= 0 or not msm_sizes or launches != want:
+        fail(f"ingest: launches {launches}, want {want} ({dispatches} dispatches, MSMs of "
+             f"{msm_sizes} points)")
+    spent["verify seam"] = sum(p.metrics.verify_seconds_total for p in sim.processes)
+    spent["the rest (pump, proposals, ordering)"] = wall - sum(spent.values())
+    rounds = [p.round for p in sim.processes]
+    busy = "not measured" if device_ms is None else (
+        f"{device_ms:.1f} ms in {kernels} kernels, {device_ms / 1e3 / wall:.4%} of the wall")
+    print(f"ingest (card; n {n}, {load_s:.0f} s of load, drain <= {drain_s:.0f} s, wall clock): "
+          f"{drv.cycles} load cycles, rounds {min(rounds)}-{max(rounds)}, waves decided "
+          f"{min(p.decided_wave for p in sim.processes)}, wall {wall:.2f} s")
+    print(f"  transactions: {rep['offered_tx']} offered, {rep['accepted_tx']} accepted, "
+          f"{rep['shed_tx']} shed, {rep['committed_tx']} committed = "
+          f"{rep['committed_tx_per_sec']} committed tx/s of the load window; submit->deliver "
+          f"p50 {rep.get('submit_deliver_p50_ms')} ms, p99 {rep.get('submit_deliver_p99_ms')} "
+          f"ms; {rep['blocks_built']} blocks, batch fill {rep['batch_fill']}; audit {audit}")
+    print(f"  verify: {pipe.sigs_dispatched} signatures in {dispatches} dispatches "
+          f"({pipe.dispatches} through the pipeline), seam "
+          f"{pipe.seam_s:.3f} s; coin: {len(msm_sizes)} MSMs of {sorted(set(msm_sizes))} points, "
+          f"{sum(msm_walls) * 1e3:.1f} ms; launches {launches}")
+    print(f"  host split: {split_line(spent)}; the card's busy time (CUDA profiler): {busy}")
+
+    # -- the traced run: obs.report's attribution and the Perfetto trace --------
+    trace_spent = dict.fromkeys(keys_spent, 0.0)
+    with env(DAGRIDER_TRACE="1", DAGRIDER_TRACE_SAMPLE=str(INGEST_TRACE_SAMPLE),
+             DAGRIDER_TRACE_RING=str(INGEST_TRACE_RING), DAGRIDER_FLIGHT_DIR=""):
+        tsim, _, tdrv, _ = ingest_cluster(keys, signers, card_ver, trace_spent, [], [])
+    if tsim.recorder is None:
+        fail("ingest: DAGRIDER_TRACE=1 did not wire the trace recorder")
+    t = time.perf_counter()
+    trep = tdrv.run(INGEST_TRACE_S, drain_s=INGEST_TRACE_DRAIN_S)
+    twall = time.perf_counter() - t
+    tsim.check_agreement()
+    if trep["audit"]["lost"] or trep["audit"]["duplicates"]:
+        fail(f"ingest (traced): audit {trep['audit']}")
+    events = tsim.recorder.events()
+    attribution = obs_report.decompose(events)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    trace_path = os.path.join(ROOT, "build", "ingest_trace.json")
+    export.write_chrome_trace(events, trace_path)
+    with open(trace_path) as fh:
+        n_trace = len(json.load(fh)["traceEvents"])
+    if not events or n_trace != len(events):
+        fail(f"ingest (traced): {len(events)} events recorded, {n_trace} in the Perfetto trace")
+    print(f"ingest traced ({INGEST_TRACE_S:.0f} s of load, drain <= {INGEST_TRACE_DRAIN_S:.0f} s, "
+          f"sample {INGEST_TRACE_SAMPLE}): wall "
+          f"{twall:.2f} s, {trep['committed_tx']} committed, {len(events)} events "
+          f"({tsim.recorder.dropped} dropped), "
+          f"Perfetto trace {n_trace} events -> build/ingest_trace.json")
+    print("  " + obs_report.format_report(attribution).replace("\n", "\n  "))
+    print(f"ingest phase wall (set-up, both runs, checks): {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
+def chaos_run(device: bool):
+    """One side of phase B: ``bench.py``'s ``mempool_chaos`` rung at n = 64
+    (delay and duplicate faults, 128 clients bursting at 40,000 tx/s into
+    a 512-transaction pool, 1 s on the virtual clock, ``dt`` 0.02) with
+    threshold coins over one oracle's books, the sync cooldowns pinned to
+    0 and the drain run without a wall budget; ``device`` takes the named
+    ``"device"`` verifier and card-MSM coins, else ``"cpu"`` and
+    ``msm="host"``."""
+    from dag_rider_tpu_torch import Config
+    from dag_rider_tpu_torch.config import MempoolConfig
+    from dag_rider_tpu_torch.consensus.coin import ThresholdCoin
+    from dag_rider_tpu_torch.consensus.simulator import Simulation
+    from dag_rider_tpu_torch.crypto import threshold as th
+    from dag_rider_tpu_torch.mempool.loadgen import ClusterLoadDriver, LoadGenerator
+    from dag_rider_tpu_torch.transport.faults import FaultPlan, FaultyTransport
+
+    n = CHAOS_N
+    cfg = Config(n=n, coin="threshold_bls", propose_empty=True, gc_depth=24,
+                 sync_request_cooldown_s=0.0, sync_serve_cooldown_s=0.0)
+    keys = th.ThresholdKeys.generate(n, cfg.f + 1)
+    sizes, walls = [], []
+    make, oracle = shared_coin_factory(ThresholdCoin, keys, n,
+                                       msm=msm_recorder(sizes, walls) if device else "host")
+    sim = Simulation(cfg, transport=FaultyTransport(FaultPlan(delay=0.05, duplicate=0.02,
+                                                              seed=10)),
+                     verifier="device" if device else "cpu", coin_factory=make)
+    ver = sim.processes[0].verifier
+    if device:
+        ver.comb_tables()  # the build launches padd_xx
+    gen = LoadGenerator(clients=2 * n, rate=40_000.0, tx_bytes=32, seed=10, profile="burst")
+    drv = ClusterLoadDriver(sim, gen, mcfg=MempoolConfig(cap=512, batch_bytes=512,
+                                                         max_batch_txs=64), dt=0.02)
+    disp0 = getattr(ver, "total_dispatches", 0)
+    reset_launch_counters()
+    t = time.perf_counter()
+    rep = drv.run(CHAOS_S, drain_s=None)
+    wall = time.perf_counter() - t
+    launches = read_launch_counters()
+    dispatches = getattr(ver, "total_dispatches", 0) - disp0
+    sim.check_agreement()
+    return sim, drv, rep, wall, launches, sizes, oracle, dispatches
+
+
+def chaos_phase() -> dict:
+    """Phase B: the mempool under chaos at n = 64 on the card, byte for byte
+    against the host oracle's run (``CPUVerifier``, host coins). Fails
+    unless every view's delivered transactions and ``(round, source)`` log
+    are byte-identical between the runs, the pool shed, nothing was lost or
+    delivered twice, the card's launches are exact and nothing was
+    contained. Returns the card run's launches."""
+    t_phase = time.perf_counter()
+    sim, drv, rep, wall, launches, sizes, oracle, dispatches = chaos_run(True)
+    check_contained(sim._verify_pipe, "mempool chaos")
+    want = want_launches(dispatches, sizes)
+    if dispatches <= 0 or not sizes or launches != want:
+        fail(f"mempool chaos: launches {launches}, want {want}")
+    hsim, hdrv, hrep, hwall, _, _, horacle, _ = chaos_run(False)
+    n = sim.cfg.n
+    for name, r in (("card", rep), ("host", hrep)):
+        if r["audit"]["lost"] or r["audit"]["duplicates"] or r["shed_tx"] <= 0:
+            fail(f"mempool chaos ({name}): audit {r['audit']}, shed {r['shed_tx']}; want no "
+                 f"loss, no duplicate and a shed")
+    logs = [[(v.id.round, v.id.source) for v in d] for d in sim.deliveries]
+    if not any(logs) or logs != [[(v.id.round, v.id.source) for v in d] for d in hsim.deliveries]:
+        fail("mempool chaos: the card run's (round, source) logs differ from the host oracle's")
+    txs = [drv.delivered_txs(i) for i in range(n)]
+    if txs != [hdrv.delivered_txs(i) for i in range(n)] or rep != hrep:
+        fail("mempool chaos: delivered transactions or the report differ from the host oracle's")
+    if oracle._sigma != horacle._sigma:
+        fail("mempool chaos: the coins' group signatures differ from the host oracle's")
+    print(f"mempool chaos (n {n}, {CHAOS_S:g} s virtual, delay 0.05 / duplicate 0.02): card "
+          f"wall {wall:.2f} s, host oracle wall {hwall:.2f} s; {rep['offered_tx']} offered, "
+          f"{rep['accepted_tx']} accepted, {rep['shed_tx']} shed, {rep['committed_tx']} "
+          f"committed; faults {dict(sim.transport.stats)}; {dispatches} card dispatches, "
+          f"{len(sizes)} coin MSMs; logs, transactions and leaders of all {n} views "
+          f"byte-identical to the host oracle; launches {launches}; phase wall "
+          f"{time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
+def lane_side(n, seed, adversary, pump, lanes, cycles):
+    """One side of phase C: ``bench.py``'s lanes identity cluster with the
+    named ``"device"`` verifier. Returns per honest view the commit order
+    and the SHA-256 of the delivered transaction bytes, the simulation, the
+    Byzantine count, the launches and the verifier's dispatches (the
+    scalar pump dispatches through the pipeline, the vector pump a batch
+    a process)."""
+    import hashlib
+
+    from dag_rider_tpu_torch import Config
+    from dag_rider_tpu_torch.consensus.adversary import ByzantineProcess, make_behavior
+    from dag_rider_tpu_torch.consensus.process import Process
+    from dag_rider_tpu_torch.consensus.simulator import Simulation
+
+    cfg = Config(n=n, coin="round_robin", propose_empty=True, pump=pump, lanes=lanes,
+                 lane_batch_bytes=256, sync_request_cooldown_s=0.0, sync_serve_cooldown_s=0.0,
+                 sync_patience=1)
+    nbyz = cfg.f if adversary else 0
+    behaviors = {i: make_behavior(adversary, seed=seed + 1000 + i) for i in range(nbyz)}
+
+    def factory(pcfg, i, ptp, **kwargs):
+        if i in behaviors:
+            return ByzantineProcess(pcfg, i, ptp, behavior=behaviors[i], **kwargs)
+        return Process(pcfg, i, ptp, **kwargs)
+
+    sim = Simulation(cfg, process_factory=factory if behaviors else None, verifier="device")
+    ver = sim.processes[0].verifier
+    ver.comb_tables()  # the build launches padd_xx
+    sim.submit_blocks(2, tx_bytes=600)  # above the 256-byte lane floor
+    disp0 = ver.total_dispatches
+    reset_launch_counters()
+    for _ in range(cycles):
+        sim.run(max_messages=n * (n - 1))
+    launches = read_launch_counters()
+    dispatches = ver.total_dispatches - disp0
+    orders, digests = [], []
+    for view in sim.deliveries[nbyz:]:
+        orders.append([(v.id.round, v.id.source) for v in view])
+        h = hashlib.sha256()
+        for v in view:
+            for tx in v.block.transactions:
+                h.update(len(tx).to_bytes(4, "little"))
+                h.update(tx)
+        digests.append(h.hexdigest())
+    return orders, digests, sim, nbyz, launches, dispatches
+
+
+def lanes_phase() -> dict:
+    """Phase C: dissemination lanes against inline payloads on the card,
+    ``bench.py``'s identity matrix (n, seed, adversary, cycles) with both
+    pumps, every vertex verified by the card. Fails unless the commit order
+    and the delivered payload digests are identical per honest view, the
+    inline side delivered something, the lanes really certified batches,
+    and each side launched one ``tree_sum_xyzt`` and one ``finish_check`` a
+    dispatch and nothing else. Returns the launches summed over all
+    sides."""
+    total = {}
+    t_phase = time.perf_counter()
+    for n, seed, adversary, cycles in LANE_MATRIX:
+        for pump in LANE_PUMPS:
+            t = time.perf_counter()
+            ref_o, ref_d, ref, nbyz, l_ref, d_ref = lane_side(n, seed, adversary, pump, False,
+                                                              cycles)
+            lane_o, lane_d, sim, _, l_lane, d_lane = lane_side(n, seed, adversary, pump, True,
+                                                               cycles)
+            what = f"lanes n={n} {adversary} {pump}"
+            if not any(ref_o):
+                fail(f"{what}: the inline oracle delivered nothing")
+            if ref_o != lane_o or ref_d != lane_d:
+                fail(f"{what}: the commit order or the delivered payload bytes differ from "
+                     f"the inline oracle's")
+            certified = sum(p.metrics.counters.get("lane_batches_certified", 0)
+                            + p.metrics.counters.get("lane_publish_degraded", 0)
+                            for p in sim.processes)
+            if certified <= 0:
+                fail(f"{what}: the lane path never ran")
+            for side, s, got, dispatches in (("inline", ref, l_ref, d_ref),
+                                             ("lanes", sim, l_lane, d_lane)):
+                want = want_launches(dispatches, [])
+                if dispatches <= 0 or got != want:
+                    fail(f"{what} ({side}): launches {got}, want {want}")
+                if s._verify_pipe is not None:
+                    check_contained(s._verify_pipe, f"{what} ({side})")
+                add_launches(total, got)
+            print(f"lanes n {n} {adversary or 'honest'} {pump}: {cycles} cycles, "
+                  f"{len(ref_o[0])} deliveries a view, commit order and payload digests of "
+                  f"{n - nbyz} honest views identical to inline; {certified} batches "
+                  f"certified or degraded; card dispatches {d_ref} / {d_lane}; "
+                  f"{time.perf_counter() - t:.2f} s")
+    print(f"lanes phase wall: {time.perf_counter() - t_phase:.2f} s; launches {total}")
+    return total
+
+
+def byzantine_phase() -> dict:
+    """Phase D: the Byzantine suite at n = 32 (``bench.py``'s byzantine rung
+    plan); ``run_scenario`` raises on any broken invariant. The
+    ``garbage_coin`` scenario runs the threshold coin with its MSM on the
+    card (launches exact, shares filtered). Prints each scenario's
+    detection counters. Returns the launches summed over the suite."""
+    from dag_rider_tpu_torch.consensus.scenarios import Scenario, run_scenario
+
+    total = {}
+    t_phase = time.perf_counter()
+    for kw in BYZ_PLAN:
+        sizes = []
+        name = f"{kw.get('adversary') or 'clean'}/{kw.get('wan', 'lan')}"
+        t = time.perf_counter()
+        with recorded_msms(sizes):
+            reset_launch_counters()
+            r = run_scenario(Scenario(n=BYZ_N, seed=0, **kw))
+            launches = read_launch_counters()
+        want = want_launches(0, sizes)
+        if launches != want:
+            fail(f"byzantine {name}: launches {launches}, want {want}")
+        if kw.get("adversary") == "garbage_coin" and (not sizes or r["coin_filtered"] <= 0):
+            fail(f"byzantine {name}: {len(sizes)} card MSMs, coin_filtered "
+                 f"{r['coin_filtered']}; want both > 0")
+        add_launches(total, launches)
+        print(f"byzantine {name} (n {BYZ_N}, {r['cycles']} cycles): invariants held; waves "
+              f"{r['decided_waves']}, equivocations_detected {r['equivocations_detected']}, "
+              f"edge_rejects {r['edge_rejects']}, coin_filtered {r['coin_filtered']}, "
+              f"sync_served {r['sync_served']}, behaviour {r['behavior']}, transport "
+              f"{r['transport']}; card MSMs {len(sizes)}; {time.perf_counter() - t:.2f} s")
+    print(f"byzantine phase wall: {time.perf_counter() - t_phase:.2f} s; launches {total}")
+    return total
+
+
+def swap_in(sim, index: int, restore, on_deliver):
+    """Replace ``sim``'s process ``index`` by a fresh ``Process`` wired as
+    the old one was (verifier, signers, coin, log) but delivering to
+    ``on_deliver``, after ``restore(process)`` filled it; the transport's
+    handler for ``index`` is the new process's. Returns the new process
+    and what ``restore`` returned."""
+    from dag_rider_tpu_torch.consensus.process import Process
+    from dag_rider_tpu_torch.transport.memory import InMemoryTransport
+
+    old = sim.processes[index]
+    proc = Process(sim.cfg, index, InMemoryTransport(), coin=old.coin, verifier=old.verifier,
+                   signer=old.signer, cert_signer=old.cert_signer,
+                   cert_verifier=old.cert_verifier, on_deliver=on_deliver, log=old.log)
+    got = restore(proc)
+    if got is False:
+        return proc, got
+    proc.transport = sim.transport
+    with sim.transport._lock:
+        sim.transport._handlers[index] = proc.on_message
+    sim.processes[index] = proc
+    return proc, got
+
+
+def snapshot_phase() -> dict:
+    """Phase E: checkpoint and attested snapshot join on the card. An n = 64
+    cluster with aggregate certificates and ``cert_span`` 4 (certificate
+    MSM and pairing on the card, every vertex through the shared
+    ``CUDAVerifier``) runs until quiet; process 0 is saved with
+    ``checkpoint.save`` and restored into a fresh process, which takes its
+    place; a fresh process for the last index first refuses a snapshot
+    with one vertex changed (state intact, ``snapshot_attest_rejects``
+    counted), then joins from ``attested_snapshot_bytes`` of process 1
+    through ``restore_from_snapshot`` with the shared verifier and the
+    card ``CertVerifier``, and takes its place; the cluster then runs on
+    until quiet. Fails unless the restored state equals the donor's, the
+    restored processes' later deliveries equal the cluster's, and the
+    launches are exact. Returns the launches of the join and the run on."""
+    import dataclasses
+    import shutil
+
+    from dag_rider_tpu_torch import Config
+    from dag_rider_tpu_torch.consensus.simulator import Simulation
+    from dag_rider_tpu_torch.core.types import Block
+    from dag_rider_tpu_torch.utils import checkpoint
+    from dag_rider_tpu_torch.verifier.cert import CertVerifier
+
+    t_phase = time.perf_counter()
+    n = SNAP_N
+    cfg = Config(n=n, coin="round_robin", propose_empty=False, gc_depth=SNAP_GC,
+                 cert_span=SNAP_SPAN)
+    sim = Simulation(cfg, verifier="device", cert=True)
+    cv = sim.cert_verifier
+    card_ver = sim.processes[0].verifier
+    if (cv.msm, cv.pair, cv.device.type, card_ver.device.type) != (
+            "device", "device", "cuda", "cuda"):
+        fail(f"snapshot: certificate msm {cv.msm!r}, pairing {cv.pair!r} on {cv.device}, "
+             f"verifier on {card_ver.device}; want all on the card")
+    card_ver.comb_tables()  # the build launches padd_xx
+    cert_sizes = []
+    sum_points = cv._sum_points
+
+    def recorded_sum(points):
+        cert_sizes.append(len(points))
+        return sum_points(points)
+
+    cv._sum_points = recorded_sum
+    sim.submit_blocks(per_process=SNAP_BLOCKS)
+    disp0 = card_ver.total_dispatches
+    reset_launch_counters()
+    t = time.perf_counter()
+    sim.run(max_messages=10**9)
+    grow_wall = time.perf_counter() - t
+    launches = read_launch_counters()
+    grow_dispatches = card_ver.total_dispatches - disp0
+    want = want_launches(grow_dispatches, cert_sizes)
+    if grow_dispatches <= 0 or launches != want:
+        fail(f"snapshot: the cluster's launches {launches}, want {want}")
+    check_contained(sim._verify_pipe, "snapshot cluster")
+    sim.check_agreement()
+    donor = sim.processes[1]
+    if donor.dag.base_round <= 0 or not donor._span_chain:
+        fail(f"snapshot: donor base round {donor.dag.base_round}, {len(donor._span_chain)} spans; "
+             f"want a pruned window and a span chain")
+    print(f"snapshot cluster (n {n}, certificates, cert_span {SNAP_SPAN}, gc_depth {SNAP_GC}, "
+          f"{SNAP_BLOCKS} blocks a process, until quiet): wall {grow_wall:.2f} s, round "
+          f"{donor.round}, base round {donor.dag.base_round}, {len(donor._span_chain)} spans, "
+          f"{len(sim.deliveries[1])} deliveries a view; {grow_dispatches} dispatches, "
+          f"{len(cert_sizes)} certificate MSMs; launches {launches}")
+
+    # -- checkpoint round trip -------------------------------------------------
+    p0 = sim.processes[0]
+    path = os.path.join(ROOT, "build", "chip_smoke_checkpoint")
+    shutil.rmtree(path, ignore_errors=True)
+    t = time.perf_counter()
+    checkpoint.save(p0, path)
+    save_s = time.perf_counter() - t
+    restored, _ = swap_in(sim, 0, lambda p: checkpoint.restore(p, path),
+                          sim.deliveries[0].append)
+    if (restored.delivered_log != p0.delivered_log or restored.round != p0.round
+            or set(restored.dag.vertices) != set(p0.dag.vertices)):
+        fail("snapshot: the restored checkpoint's state differs from the saved process's")
+    print(f"checkpoint: saved process 0 (round {p0.round}, {len(p0.dag.vertices)} vertices, "
+          f"{sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))} bytes) in "
+          f"{save_s:.3f} s, restored into a fresh process with the same state")
+
+    # -- a tampered snapshot, then the attested join -----------------------------
+    last = n - 1
+    victim = donor.dag.vertices_in_round(donor.dag.base_round + 1)[0]
+    forged = dataclasses.replace(victim, block=Block((b"forged-payload",)),
+                                 signature=victim.signature)
+    del donor.dag.vertices[victim.id]
+    donor.dag.vertices[forged.id] = forged
+    try:
+        forged_blob = checkpoint.attested_snapshot_bytes(donor)
+    finally:
+        del donor.dag.vertices[forged.id]
+        donor.dag.vertices[victim.id] = victim
+    blob = checkpoint.attested_snapshot_bytes(donor)
+    joined = []
+    # the joiner's own span verifiers on the card: the cluster's has every
+    # span's verdict cached, a joining process has none
+    reg = card_ver.registry
+
+    def join(p):
+        if checkpoint.restore_from_snapshot(p, forged_blob, verifier=card_ver,
+                                            span_verifier=CertVerifier(reg, cfg.quorum)):
+            fail("snapshot: a blob with one vertex changed was accepted")
+        if p.dag.max_round != 0 or p.round != 0 or (
+                p.metrics.counters.get("snapshot_attest_rejects", 0) != 1):
+            fail("snapshot: the refused blob changed the victim's state or was not counted")
+        span_ver = CertVerifier(reg, cfg.quorum)
+        if (span_ver.pair, span_ver.device.type) != ("device", "cuda"):
+            fail(f"snapshot: the joiner's span verifier pairs {span_ver.pair!r} on "
+                 f"{span_ver.device}; want the card")
+        disp0, sigs0 = card_ver.total_dispatches, card_ver.total_sigs_dispatched
+        checks0 = p.metrics.counters.get("snapshot_pairing_checks", 0)
+        reset_launch_counters()
+        t0 = time.perf_counter()
+        ok = checkpoint.restore_from_snapshot(p, blob, verifier=card_ver, span_verifier=span_ver)
+        joined.extend([time.perf_counter() - t0, read_launch_counters(),
+                       span_ver.stats["pairing_checks"], card_ver.total_dispatches - disp0,
+                       card_ver.total_sigs_dispatched - sigs0,
+                       p.metrics.counters.get("snapshot_pairing_checks", 0) - checks0])
+        return ok
+
+    later = []
+    pj, ok = swap_in(sim, last, join, later.append)
+    if ok is not True:
+        fail("snapshot: restore_from_snapshot refused the donor's attested snapshot")
+    join_s, join_launches, pairings, dispatches, sigs, checks = joined
+    want = want_launches(dispatches, [])
+    if join_launches != want:
+        fail(f"snapshot: the join launched {join_launches}, want {want}")
+    c = pj.metrics.counters
+    if checks <= 0 or pairings != checks:
+        fail(f"snapshot: {pairings} card pairings for {checks} span checks")
+    if pj.dag.base_round != donor.dag.base_round or sorted(pj.dag.vertices) != sorted(
+            donor.dag.vertices):
+        fail("snapshot: the joined process's window differs from the donor's")
+    print(f"snapshot join: attested blob {len(blob)} bytes, {c['snapshot_spans_verified']} spans "
+          f"verified with {pairings} pairings on the card, {sigs} unattested signatures in "
+          f"{dispatches} card dispatches, {join_s:.3f} s; launches {join_launches}; the blob with "
+          f"one vertex changed refused, victim intact, snapshot_attest_rejects counted")
+
+    # -- run on: both restored processes take part ---------------------------------
+    mark = len(sim.deliveries[1])
+    disp0, sizes0 = card_ver.total_dispatches, len(cert_sizes)
+    for p in sim.processes:
+        for k in range(SNAP_MORE):
+            p.submit(Block((f"p{p.index}-after-{k}".encode().ljust(32, b"."),)))
+    reset_launch_counters()
+    t = time.perf_counter()
+    sim.run(max_messages=10**9)
+    on_wall = time.perf_counter() - t
+    on_launches = read_launch_counters()
+    want = want_launches(card_ver.total_dispatches - disp0, cert_sizes[sizes0:])
+    if on_launches != want:
+        fail(f"snapshot: the run on launched {on_launches}, want {want}")
+    check_contained(sim._verify_pipe, "snapshot run on")
+    cluster = [(v.id.round, v.id.source, v.digest()) for v in sim.deliveries[1]]
+    joined_log = [(v.id.round, v.id.source, v.digest()) for v in later]
+    # the joiner delivers the window's history above the snapshot's floor,
+    # then what the cluster delivers after the join: a suffix of the
+    # cluster's log that covers everything after the join
+    if len(cluster) == mark:
+        fail("snapshot: the cluster delivered nothing after the join")
+    if len(joined_log) < len(cluster) - mark or joined_log != cluster[len(cluster) - len(
+            joined_log):]:
+        fail("snapshot: the joined process's deliveries are not the cluster's log from the "
+             "snapshot's floor on")
+    logs = [[(v.id.round, v.id.source, v.digest()) for v in d] for d in sim.deliveries[:last]]
+    if any(log != logs[1] for log in logs):
+        fail("snapshot: after the run on, the restored checkpoint's log differs from the "
+             "cluster's")
+    print(f"snapshot run on ({SNAP_MORE} blocks a process, until quiet): wall {on_wall:.2f} s, "
+          f"{len(cluster) - mark} deliveries after the join; the joined process delivered "
+          f"{len(joined_log)}, the cluster's log from round {joined_log[0][0]} on, and the "
+          f"restored checkpoint's log equals every view's; launches {on_launches}; "
+          f"phase wall {time.perf_counter() - t_phase:.2f} s")
+    total = {}
+    add_launches(total, join_launches)
+    add_launches(total, on_launches)
+    return total
+
+
+def rotate_run(keys, op, epoch_on: bool, msm):
+    """``bench.py``'s ``rotate_ab`` cluster: n = 4, 4-wave epochs, one
+    ``rotate`` op, independent coin books over ``keys``, run until every
+    view decided 5 waves (and, with epochs, crossed a boundary), with
+    ``epoch_rotate="dkg"``."""
+    from dag_rider_tpu_torch import Config
+    from dag_rider_tpu_torch.consensus.coin import ThresholdCoin
+    from dag_rider_tpu_torch.consensus.simulator import Simulation
+    from dag_rider_tpu_torch.core.types import Block
+
+    n = ROTATE_N
+    cfg = Config(n=n, coin="threshold_bls", propose_empty=True, epoch=epoch_on, epoch_waves=4,
+                 epoch_rotate="dkg")
+    sim = Simulation(cfg, coin_factory=lambda i: ThresholdCoin(keys, i, n, msm=msm))
+    sim.submit_blocks(per_process=2)
+    sim.processes[0].submit(Block((op,)))
+    for _ in range(900):
+        if min(p.decided_wave for p in sim.processes) >= 5 and (
+                not epoch_on or min(p.epoch_mgr.epoch for p in sim.processes) >= 1):
+            break
+        sim.run(max_messages=300)
+    else:
+        fail(f"rotate: the run (epoch {epoch_on}) never settled")
+    sim.check_agreement()
+    return sim
+
+
+def rotate_phase() -> dict:
+    """Phase F: DKG key rotation (``bench.py``'s ``rotate_ab`` cell with
+    ``epoch_rotate="dkg"``, n = 4 as the reference's own DKG tests run it:
+    the resharing is host math that grows as n^3), the coins' MSM on the
+    card. Fails unless every process rotated and holds the same new group
+    key, the log is byte-identical to the same run with host coins, the
+    pre-boundary prefix equals the static run's, and the MSM launches are
+    exact. Returns the card run's launches."""
+    from dag_rider_tpu_torch.core import codec
+    from dag_rider_tpu_torch.core.types import EpochOp
+    from dag_rider_tpu_torch.crypto import threshold as th
+
+    t_phase = time.perf_counter()
+    n = ROTATE_N
+    keys = th.ThresholdKeys.generate(n, (n - 1) // 3 + 1, seed=b"bench-ab")
+    op = codec.encode_epoch_op(EpochOp("rotate", 0, 1, b""))
+    sizes, walls = [], []
+    reset_launch_counters()
+    t = time.perf_counter()
+    rot = rotate_run(keys, op, True, msm_recorder(sizes, walls))
+    wall = time.perf_counter() - t
+    launches = read_launch_counters()
+    want = want_launches(0, sizes)
+    if not sizes or launches != want:
+        fail(f"rotate: launches {launches}, want {want}")
+    host = rotate_run(keys, op, True, "host")
+    static = rotate_run(keys, op, False, "host")
+    rotations = [p.metrics.counters.get("epoch_rotations", 0) for p in rot.processes]
+    if min(rotations) < 1:
+        fail(f"rotate: rotations per process {rotations}")
+    group = {p.coin.keys.group_pk for p in rot.processes}
+    if len(group) != 1 or keys.group_pk in group:
+        fail("rotate: the processes do not hold one new group key after the rotation")
+    logs = [[(v.id.round, v.id.source, v.digest()) for v in d] for d in rot.deliveries]
+    if logs != [[(v.id.round, v.id.source, v.digest()) for v in d] for d in host.deliveries]:
+        fail("rotate: the card coins' log differs from the host coins' run")
+    cut = rot.processes[0].epoch_mgr.history[-1].boundary_wave * 4
+
+    def prefix(sim):
+        return [(v.id.round, v.id.source, v.digest()) for v in sim.deliveries[0]
+                if v.id.round <= cut]
+
+    if not prefix(rot) or prefix(rot) != prefix(static):
+        fail("rotate: the pre-boundary prefix differs from the static run's")
+    print(f"rotate (n {n}, DKG resharing, 4-wave epochs): card coins wall {wall:.2f} s, "
+          f"{min(p.decided_wave for p in rot.processes)} waves decided, boundary wave "
+          f"{cut // 4}, rotations {rotations}, one new group key; {len(sizes)} card MSMs "
+          f"({sum(walls) * 1e3:.1f} ms); log byte-identical to the host coins' run, "
+          f"{len(prefix(rot))}-vertex prefix equal to the static run's; launches {launches}; "
+          f"phase wall {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
+def host_layer_phases() -> dict:
+    """Phases A-F in order; returns each phase's launches by letter."""
+    out = {}
+    for letter, phase in (("A", ingest_phase), ("B", chaos_phase), ("C", lanes_phase),
+                          ("D", byzantine_phase), ("E", snapshot_phase), ("F", rotate_phase)):
+        t = time.perf_counter()
+        out[letter] = phase()
+        print(f"phase {letter} wall: {time.perf_counter() - t:.2f} s")
+    return out
 
 
 if __name__ == "__main__":

@@ -173,10 +173,22 @@ class Simulation:
         # sims run unsigned.
         self.lane_bus = None
         if cfg.lanes:
-            raise NotImplementedError(
-                "dissemination lanes (lanes/, transport/lanebus.py) are not "
-                "ported yet (ROADMAP Queue 1 item 8)"
-            )
+            from dag_rider_tpu_torch.lanes import LaneCoordinator
+            from dag_rider_tpu_torch.transport.lanebus import LaneBus
+
+            self.lane_bus = LaneBus(cfg.n, workers=cfg.lane_workers)
+            for i, p in enumerate(self.processes):
+                p.attach_lanes(
+                    LaneCoordinator(
+                        cfg,
+                        i,
+                        self.lane_bus.endpoint(i),
+                        cert_signer=cert_signers[i] if cert_signers else None,
+                        cert_verifier=self.cert_verifier,
+                        metrics=p.metrics,
+                        log=p.log,
+                    )
+                )
         if self.flight is not None:
             # a dump captures every process's full counter state
             for p in self.processes:
@@ -313,11 +325,36 @@ class Simulation:
                 )
 
     def attach_mempools(self, mcfg=None, *, clock=None) -> list:
-        """One Mempool front door per process in the reference; the port
-        has no mempool yet."""
-        raise NotImplementedError(
-            "the mempool (mempool/) is not ported yet (ROADMAP Queue 1 item 8)"
-        )
+        """One Mempool front door per process: each process's
+        a_deliver callback is wrapped so its mempool closes the
+        submit→a_deliver latency books, and the mempool's gauges land in
+        that process's metrics snapshot. Returns the mempools; drive
+        load through them with mempool.loadgen.ClusterLoadDriver (or by
+        hand: ``mp.submit(...)`` then feed ``mp.build_blocks()`` into
+        ``processes[i].submit``)."""
+        import time as _time
+
+        from dag_rider_tpu_torch.mempool import Mempool
+
+        self.mempools = [
+            Mempool(
+                mcfg,
+                clock=clock if clock is not None else _time.monotonic,
+                metrics=p.metrics,
+                log=p.log,
+            )
+            for p in self.processes
+        ]
+        for p, mp in zip(self.processes, self.mempools):
+            prev = p.on_deliver
+
+            def _deliver(v, prev=prev, mp=mp):
+                if prev is not None:
+                    prev(v)
+                mp.observe_delivered(v.block)
+
+            p.on_deliver = _deliver
+        return self.mempools
 
     def run(self, max_messages: int = 100_000) -> int:
         """Start everyone, then pump to quiescence in *bursts*: deliver

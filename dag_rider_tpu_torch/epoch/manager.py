@@ -90,9 +90,10 @@ def derive_epoch_keys(
     "seed" runs the deterministic seeded dealer — every process derives
     the identical full key set from the committed transcript, the cheap
     path for in-process clusters and tests. "dkg" runs the full
-    joint-Feldman resharing flow of ``dag_rider_tpu/crypto/dkg.py`` in the
-    reference; the port has no DKG yet, so it raises
-    NotImplementedError.
+    joint-Feldman resharing flow (:func:`dag_rider_tpu_torch.crypto.dkg.
+    run_resharing`) and returns this participant's dealerless view —
+    the group pk and share pks still agree across processes because the
+    resharing's inputs all chain from the same committed seed.
     """
     if mode == "none":
         return None
@@ -101,10 +102,14 @@ def derive_epoch_keys(
 
         return ThresholdKeys.generate(n, threshold, seed=transition.seed)
     if mode == "dkg":
-        raise NotImplementedError(
-            'epoch rotation mode "dkg" needs crypto/dkg.py, which the port '
-            "does not have yet (ROADMAP Queue 1 item 6: DKG); use "
-            '"seed" or "none"'
+        from dag_rider_tpu_torch.crypto.dkg import run_resharing
+
+        results = run_resharing(n, threshold, transition.seed)
+        for r in results:
+            if r.index == index:
+                return r.to_keys()
+        raise RuntimeError(
+            f"resharing produced no result for participant {index}"
         )
     raise ValueError(f"unknown epoch rotation mode {mode!r}")
 

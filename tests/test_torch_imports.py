@@ -1,10 +1,12 @@
-"""The port imports no JAX and nothing of the JAX package.
+"""The port imports no JAX, nothing of the JAX package and no gRPC.
 
 Every ``.py`` file of ``dag_rider_tpu_torch/`` (and ``chip_smoke.py``,
-which runs on a machine without JAX) is parsed with ``ast``; an import of
-``jax``, ``jaxlib`` or ``dag_rider_tpu`` anywhere in it, lazy imports
-inside functions included, fails its case. Then the consensus entry point
-is imported, and a small cluster run, in a fresh interpreter where those
+which runs on a machine without JAX or gRPC) is parsed with ``ast``; an
+import of ``jax``, ``jaxlib``, ``dag_rider_tpu`` or ``grpc`` anywhere in
+it, lazy imports inside functions included, fails its case. Then the
+consensus entry point and the host modules (mempool, lanes, Byzantine
+suite, checkpoint, trace export, DKG) are imported, and a small cluster
+run and a mempool-fronted one, in a fresh interpreter where those
 packages cannot be imported at all.
 """
 
@@ -18,7 +20,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "dag_rider_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "dag_rider_tpu")
+FORBIDDEN = ("jax", "jaxlib", "dag_rider_tpu", "grpc")
 FILES = sorted(p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")) + ["chip_smoke.py"]
 
 
@@ -38,6 +40,7 @@ def forbidden(name: str) -> bool:
 
 def test_the_guard_sees_what_it_must():
     assert forbidden("jax.numpy") and forbidden("jaxlib") and forbidden("dag_rider_tpu.config")
+    assert forbidden("grpc") and forbidden("grpc.aio")
     assert not forbidden("dag_rider_tpu_torch.config") and not forbidden("numpy")
     tree = ast.parse("def f():\n    from dag_rider_tpu.ops import field\n    import jax\n")
     assert [m for m in imported_modules(tree) if forbidden(m)] == ["dag_rider_tpu.ops", "jax"]
@@ -58,13 +61,13 @@ def test_simulator_runs_with_jax_blocked():
 
         class Block(importlib.abc.MetaPathFinder):
             def find_spec(self, name, path=None, target=None):
-                if name.split(".")[0] in ("jax", "jaxlib", "dag_rider_tpu"):
+                if name.split(".")[0] in ("jax", "jaxlib", "dag_rider_tpu", "grpc"):
                     raise ImportError(f"blocked: {name}")
                 return None
 
         sys.meta_path.insert(0, Block())
         for name in list(sys.modules):
-            if name.split(".")[0] in ("jax", "jaxlib", "dag_rider_tpu"):
+            if name.split(".")[0] in ("jax", "jaxlib", "dag_rider_tpu", "grpc"):
                 del sys.modules[name]
         from dag_rider_tpu_torch import Config
         from dag_rider_tpu_torch.consensus.simulator import Simulation
@@ -74,7 +77,17 @@ def test_simulator_runs_with_jax_blocked():
         sim.run(max_messages=2000)
         sim.check_agreement()
         assert any(sim.deliveries)
-        assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "dag_rider_tpu")]
+        import dag_rider_tpu_torch.consensus.scenarios
+        import dag_rider_tpu_torch.crypto.dkg
+        import dag_rider_tpu_torch.lanes
+        import dag_rider_tpu_torch.obs.export
+        import dag_rider_tpu_torch.obs.report
+        import dag_rider_tpu_torch.utils.checkpoint
+        from dag_rider_tpu_torch.mempool import loadgen
+
+        assert loadgen.smoke(n=4, seconds=0.5)["committed_tx"] > 0
+        blocked = ("jax", "jaxlib", "dag_rider_tpu", "grpc")
+        assert not [m for m in sys.modules if m.split(".")[0] in blocked]
         print("ok")
         """
     )

@@ -6,7 +6,8 @@ branch (``DAGRIDER_COMB``, ``DAGRIDER_COMB_BITS``, ``DAGRIDER_PREP_WORKERS``,
 ``DAGRIDER_CERT_MSM``'s "sharded" value, ``DAGRIDER_MESH``) or, where the
 port has no such branch, raises — never a quiet fall-through to another
 route (``DAGRIDER_SHARDED_COMB_IMPL`` names JAX implementations). The seams
-the port does not have yet name their current ROADMAP Queue 1 item.
+that once raised for an unported module (lanes, the mempool, DKG
+rotation) now build what the reference builds.
 """
 
 import warnings
@@ -160,17 +161,23 @@ def test_cert_pair_knob_then_device_default(cert_reg, monkeypatch):
         CertVerifier(cert_reg, 3, msm="host", pair="gpu")
 
 
-# -- the seams not ported yet name their current item ------------------------
+# -- the seams that named Queue 1 items 6 and 8 now work ----------------------
 
 
 def test_unported_seams_name_their_item():
-    cfg = Config(n=4, coin="round_robin")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        Simulation(Config(n=4, coin="round_robin", lanes=True))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        Simulation(cfg).attach_mempools()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        derive_epoch_keys(None, 4, 2, "dkg", 0)
+    """The three seams that raised until their modules were ported (the
+    lanes, the mempool, DKG) now build what the reference builds."""
+    from dag_rider_tpu_torch.epoch.manager import EpochTransition
+    from dag_rider_tpu_torch.mempool import Mempool
+    from dag_rider_tpu_torch.transport.lanebus import LaneBus
+
+    sim = Simulation(Config(n=4, coin="round_robin", lanes=True))
+    assert isinstance(sim.lane_bus, LaneBus)
+    assert all(p.lanes is not None for p in sim.processes)
+    mps = Simulation(Config(n=4, coin="round_robin")).attach_mempools()
+    assert len(mps) == 4 and all(isinstance(mp, Mempool) for mp in mps)
+    keys = derive_epoch_keys(EpochTransition(1, 4, b"s" * 32, ()), 4, 2, "dkg", 0)
+    assert keys is not None and keys.threshold == 2 and len(keys.share_pks) == 4
 
 
 # -- DAGRIDER_MESH / DAGRIDER_SHARDED_COMB_IMPL -------------------------------
