@@ -149,13 +149,36 @@ signatures). The script:
    checkpoint round trip and attested snapshot join at n = 64 (span
    pairings on the card, a tampered blob refused); F, DKG key rotation at
    n = 4 with the coins on the card, byte-identical to host coins;
-14. prints ``{"device_programs": [...]}`` (the pairing's, the ladder's, the
+14. the degradation ladder (phase G): G1, after the sharded verifier, the
+   verify phase's 4,096 rows through ``ResilientVerifier([card tier,
+   CPUVerifier floor], retries=1)``, where the card tier is a counting
+   wrapper over the shared ``CUDAVerifier``: streamed in chunks of
+   ``STREAM_BUCKET`` with two seeded ``dispatch_raise`` and then two
+   ``resolve_raise`` faults armed on the card, whose containment
+   quarantines exactly the plan's chunks onto the ladder's floor (the
+   ladder sees no exception); then 8 calls of 2 rounds with the card tier
+   down for a seeded window of 2 calls and promoted back by the probe, on
+   ``CUDAVerifier`` and on ``ShardedCUDAVerifier(mesh_from_env())``: masks
+   equal, retries, fallbacks and quarantined rows exactly the plan's, no
+   fall without a fault, the call after the promotion launched on the card,
+   launches exactly the card tier's answered dispatches; G2, after phase
+   12, phase 8's cluster with the ladder as its shared verifier and the
+   card tier down for 2 seeded run calls: logs, leaders and waves
+   byte-identical to the host oracle's log of phase 8,
+   ``verify_fallback_tier`` 1 in the process metrics at the stretch's end,
+   the card answering every call after the promotion, launches exact,
+   nothing contained;
+15. the checkers (phase H, after phases A-F): ``python -m
+   dag_rider_tpu_torch.analysis --budget-s 30`` in a subprocess, exit 0 and
+   ``clean``;
+16. prints ``{"device_programs": [...]}`` (the pairing's, the ladder's, the
    windowed program's, ``wave_commit_votes``' and the sharded MSM's times
    and bounds), ``{"kernels": [...]}`` (with each kernel's
    ``consensus_launches``, ``consensus_cert_launches``,
-   ``windowed_launches``, ``n1024_launches``, ``sharded_launches`` and
-   ``host_layer_launches`` per phase A-F; the tree's row carries its M = 32
-   reading under ``at_m32``), the card line again, and as the last line
+   ``windowed_launches``, ``n1024_launches``, ``sharded_launches``,
+   ``host_layer_launches`` per phase A-F and ``ladder_launches`` per run of
+   phase G; the tree's row carries its M = 32 reading under
+   ``at_m32``), the card line again, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. Run it from the root of
@@ -232,6 +255,10 @@ SNAP_GC = 16  # gc_depth: the window a snapshot carries
 SNAP_BLOCKS = 24  # blocks a process submits before the snapshot: past the GC depth
 SNAP_MORE = 4  # blocks a process submits for the run on
 ROTATE_N = 4  # bench.py's rotate_ab cell (:2025-2080); DKG host math grows as n^3
+LADDER_ROUNDS_PER_CALL = 2  # G1's flaky run: the 16 rounds in 8 ladder calls of 512 rows
+LADDER_WINDOW = 2  # calls the card tier is down for in G1's flaky run
+LADDER_DOWN = 2  # run calls the card tier is down for in G2
+LADDER_PROBE_S = 0.05  # the ladder's probe interval
 
 # Published H100 SXM peak memory rate (NVIDIA data sheet), used for the
 # byte side of each kernel's bound.
@@ -337,7 +364,12 @@ def main() -> int:
           f"{imad_per_s / 1e12:.2f} T/s")
 
     # -- build ------------------------------------------------------------
-    t0, wall0 = time.perf_counter(), time.time()
+    # a stamp file's mtime starts the build on the file system's clock, the
+    # clock each library's mtime is read on
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    stamp = build.BUILD_DIR / ".build_start"
+    stamp.touch()
+    t0, wall0 = time.perf_counter(), stamp.stat().st_mtime
     libs = build.build_all()
     # each library is the file its own nvcc wrote last, so its mtime marks
     # the end of that source's compile (the sources compile in parallel)
@@ -585,6 +617,7 @@ def main() -> int:
                                                      imad_per_s)
     vote_rows = round_step_phase(reg, rounds, mask, imad_per_s)
     sharded_verify_phase(ver, rounds, mask)
+    ladder_launches = ladder_verify_phase(ver, rounds, mask)
 
     bls_rows, programs = bls_phases(dev, imad_per_s)
     report.extend(bls_rows)
@@ -596,7 +629,9 @@ def main() -> int:
     ref = consensus_phase()
     cert_launches = consensus_cert_phase()
     sharded_launches = sharded_consensus_phase(ref)
+    ladder_launches["G2"] = ladder_consensus_phase(ref)
     host_layer = host_layer_phases()
+    checkers_phase()
     for row in report:
         name = row["name"]
         row["consensus_launches"] = ref["launches"].get(name, 0)
@@ -605,6 +640,7 @@ def main() -> int:
         row["windowed_launches"] = windowed_launches.get(name, 0)
         row["n1024_launches"] = n1024_launches.get(name, 0)
         row["host_layer_launches"] = {k: v.get(name, 0) for k, v in host_layer.items()}
+        row["ladder_launches"] = {k: v.get(name, 0) for k, v in ladder_launches.items()}
 
     print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"device_programs": programs}))
@@ -699,43 +735,43 @@ def host_prep_phase(ver, rounds, mask) -> None:
     print(f"host prep phase: os.cpu_count() {cpus}, W = {w}, {total} rows")
     configs = (("1 worker, native", 1, "1"), (f"{w} workers, native", w, "1"),
                ("1 worker, DAGRIDER_NATIVE=0", 1, "0"))
-    arrays, stats = {}, {}
-    walls, rows = {c[0]: [] for c in configs}, {c[0]: {} for c in configs}
-    # the three in turns, PREP_REPEATS rounds: the host's load drifts
-    # between the configurations' runs, not within one round
-    for _ in range(PREP_REPEATS):
-        for name, workers, flag in configs:
-            ver.prep_workers = workers
-            ver._prep()  # (re)build the engine outside the timed call
-            before = dict(native.ROWS_HASHED)
-            with env(DAGRIDER_NATIVE=flag):
-                t0 = time.perf_counter()
-                out = ver._prepare(flat, total)
-                walls[name].append(time.perf_counter() - t0)
-            for k in native.ROWS_HASHED:
-                rows[name][k] = rows[name].get(k, 0) + native.ROWS_HASHED[k] - before[k]
-            arrays[name], stats[name] = out, ver.prep_stats()
-    for name, workers, flag in configs:
-        route = "native" if flag == "1" else "hashlib"
-        got = rows[name]
-        if got[route] != PREP_REPEATS * int(arrays[name][0][:, 129].sum()) or (
-                sum(got.values()) != got[route]):
-            fail(f"prep {name}: rows hashed by route {got}, want all on the {route} route")
-        print(f"  prep {name}: median {statistics.median(walls[name]) * 1e3:.2f} ms wall (runs "
-              f"{[round(t * 1e3, 2) for t in walls[name]]} ms, in turns with the others); "
-              f"rows hashed {got}; prep_stats after its last run {stats[name]}")
-    first = arrays[configs[0][0]]
-    for name, out in arrays.items():
-        if any(a.tobytes() != b.tobytes() for a, b in zip(out, first)):
-            fail(f"prep arrays of {name} differ from those of {configs[0][0]}")
-    print(f"  prep arrays (u8 {first[0].shape}, i32 {first[1].shape}) byte-identical across "
-          f"the three")
-
-    chunks = -(-total // STREAM_BUCKET)
     depth0 = ver.pipeline_depth
-    ver.prep_workers = w
-    ver.fixed_bucket = STREAM_BUCKET
     try:
+        arrays, stats = {}, {}
+        walls, rows = {c[0]: [] for c in configs}, {c[0]: {} for c in configs}
+        # the three in turns, PREP_REPEATS rounds: the host's load drifts
+        # between the configurations' runs, not within one round
+        for _ in range(PREP_REPEATS):
+            for name, workers, flag in configs:
+                ver.prep_workers = workers
+                ver._prep()  # (re)build the engine outside the timed call
+                before = dict(native.ROWS_HASHED)
+                with env(DAGRIDER_NATIVE=flag):
+                    t0 = time.perf_counter()
+                    out = ver._prepare(flat, total)
+                    walls[name].append(time.perf_counter() - t0)
+                for k in native.ROWS_HASHED:
+                    rows[name][k] = rows[name].get(k, 0) + native.ROWS_HASHED[k] - before[k]
+                arrays[name], stats[name] = out, ver.prep_stats()
+        for name, workers, flag in configs:
+            route = "native" if flag == "1" else "hashlib"
+            got = rows[name]
+            if got[route] != PREP_REPEATS * int(arrays[name][0][:, 129].sum()) or (
+                    sum(got.values()) != got[route]):
+                fail(f"prep {name}: rows hashed by route {got}, want all on the {route} route")
+            print(f"  prep {name}: median {statistics.median(walls[name]) * 1e3:.2f} ms wall (runs "
+                  f"{[round(t * 1e3, 2) for t in walls[name]]} ms, in turns with the others); "
+                  f"rows hashed {got}; prep_stats after its last run {stats[name]}")
+        first = arrays[configs[0][0]]
+        for name, out in arrays.items():
+            if any(a.tobytes() != b.tobytes() for a, b in zip(out, first)):
+                fail(f"prep arrays of {name} differ from those of {configs[0][0]}")
+        print(f"  prep arrays (u8 {first[0].shape}, i32 {first[1].shape}) byte-identical across "
+              f"the three")
+
+        chunks = -(-total // STREAM_BUCKET)
+        ver.prep_workers = w
+        ver.fixed_bucket = STREAM_BUCKET
         runs = {d: {"wall": [], "prep": [], "wait": []} for d in (1, 2)}
         for _ in range(3):  # depth 1 and 2 in turns
             for depth in (1, 2):
@@ -776,8 +812,8 @@ def host_prep_phase(ver, rounds, mask) -> None:
         for kind, seed in (("dispatch_raise", SEED), ("resolve_raise", SEED + 1)):
             g0 = (ver.poisoned_windows, ver.quarantined_chunks, ver.quarantine_rejected)
             inj = VerifierFaultInjector(VerifierFaultPlan(**{kind: 1.0}, max_faults=2, seed=seed))
-            inj.arm(ver)
             try:
+                inj.arm(ver)
                 got = ver.verify_rounds(rounds)
             finally:
                 inj.disarm()
@@ -970,7 +1006,7 @@ def timed_cluster(cfg, keys, signers, msm, spent, **sim_kw):
 
 
 def drive_cluster(cfg, keys, signers, msm, *, verifier=None, cert=False, per_process=2,
-                  calls=None, budget=None, until_quiet=False, named=None):
+                  calls=None, budget=None, until_quiet=False, named=None, between=None):
     """Build the port's cluster, run it, and split its host time: vertex
     signing, coin share signing, the coin's combine with its pairing
     check, the verify seam, and with certificates the certificate share
@@ -984,7 +1020,8 @@ def drive_cluster(cfg, keys, signers, msm, *, verifier=None, cert=False, per_pro
     The launch counters are set to 0 just before the first ``run`` call
     (after the comb tables exist). The run loop: ``calls`` calls if given,
     else until every view decided ``CONS_WAVES`` waves, or with
-    ``until_quiet`` until a call delivers nothing."""
+    ``until_quiet`` until a call delivers nothing. ``between(done, sim)`` runs
+    after each ``run`` call (``done`` calls made so far)."""
     n = cfg.n
     budget = n * (n - 1) if budget is None else budget
     keys_spent = ["vertex signing", "coin share signing", "coin combine + pairing check"]
@@ -1032,6 +1069,8 @@ def drive_cluster(cfg, keys, signers, msm, *, verifier=None, cert=False, per_pro
         got = sim.run(max_messages=budget)
         msgs += got
         done += 1
+        if between is not None:
+            between(done, sim)
         if until_quiet and calls is None and got == 0:
             break
     wall = time.perf_counter() - t
@@ -1158,7 +1197,8 @@ def consensus_phase() -> dict:
     print(f"consensus phase wall (set-up, both runs, checks): "
           f"{time.perf_counter() - t_phase:.2f} s")
     return {"launches": launches, "logs": logs, "sigma": oracle._sigma, "decided": decided,
-            "msgs": msgs, "calls": calls, "wall": wall, "keys": keys, "signers": signers}
+            "msgs": msgs, "calls": calls, "wall": wall, "keys": keys, "signers": signers,
+            "verifier": card_ver}
 
 
 def consensus_cert_phase() -> dict:
@@ -2140,38 +2180,42 @@ def sharded_verify_phase(ver, rounds, mask) -> None:
     verifiers = {"one card (CUDAVerifier)": CUDAVerifier(ver.registry)}
     for name, mesh in (("mesh_from_env()", mesh_from_env()), ("virtual_mesh(4)", virtual_mesh(4))):
         verifiers[f"{name} = {mesh!r}"] = ShardedCUDAVerifier(ver.registry, mesh)
-    pipes, walls = {}, {}
-    for name, v in verifiers.items():
-        v._tables = tables  # the same registry's tables, not a second build
-        v.fixed_bucket = N_KEYS
-        pipes[name] = pipe = VerifierPipeline(v, depth=2, warmup=True)
-        k = getattr(v, "mesh_devices", 1)
-        reset_launch_counters()
-        got = pipe.verify_rounds(rounds)
-        launches = read_launch_counters()
-        want = {"padd_xx": 0, "tree_sum_xyzt": chunks * k, "finish_check": chunks * k,
-                "pow22523": 0, "field_mul": 0, "padd381_xx": 0, "horner381": 0}
-        if flat_mask(got) != mask:
-            fail(f"sharded verify on {name}: masks differ from the merged dispatch's")
-        if launches != want:
-            fail(f"sharded verify on {name}: launches {launches}, want {want}")
-        walls[name] = []
-    for _ in range(3):  # the three in turns
-        for name, pipe in pipes.items():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            pipe.verify_rounds(rounds)
-            torch.cuda.synchronize()
-            walls[name].append(time.perf_counter() - t0)
-    for name, v in verifiers.items():
-        k = getattr(v, "mesh_devices", 1)
-        extra = (f"; last_shard_batch {v.last_shard_batch}, last_shard_imbalance "
-                 f"{v.last_shard_imbalance:.3f}, tables {v.table_bytes()} B"
-                 if hasattr(v, "mesh") else "")
-        print(f"sharded verify, {name} ({total} sigs, {chunks} chunks of {N_KEYS}, depth 2): masks "
-              f"equal; {total / statistics.median(walls[name]):.0f} sigs/s median (runs "
-              f"{[round(w * 1e3, 1) for w in walls[name]]} ms, in turns); launches exactly "
-              f"{chunks * k} tree_sum_xyzt and finish_check{extra}")
+    try:
+        pipes, walls = {}, {}
+        for name, v in verifiers.items():
+            v._tables = tables  # the same registry's tables, not a second build
+            v.fixed_bucket = N_KEYS
+            pipes[name] = pipe = VerifierPipeline(v, depth=2, warmup=True)
+            k = getattr(v, "mesh_devices", 1)
+            reset_launch_counters()
+            got = pipe.verify_rounds(rounds)
+            launches = read_launch_counters()
+            want = {"padd_xx": 0, "tree_sum_xyzt": chunks * k, "finish_check": chunks * k,
+                    "pow22523": 0, "field_mul": 0, "padd381_xx": 0, "horner381": 0}
+            if flat_mask(got) != mask:
+                fail(f"sharded verify on {name}: masks differ from the merged dispatch's")
+            if launches != want:
+                fail(f"sharded verify on {name}: launches {launches}, want {want}")
+            walls[name] = []
+        for _ in range(3):  # the three in turns
+            for name, pipe in pipes.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pipe.verify_rounds(rounds)
+                torch.cuda.synchronize()
+                walls[name].append(time.perf_counter() - t0)
+        for name, v in verifiers.items():
+            k = getattr(v, "mesh_devices", 1)
+            extra = (f"; last_shard_batch {v.last_shard_batch}, last_shard_imbalance "
+                     f"{v.last_shard_imbalance:.3f}, tables {v.table_bytes()} B"
+                     if hasattr(v, "mesh") else "")
+            print(f"sharded verify, {name} ({total} sigs, {chunks} chunks of {N_KEYS}, depth 2): masks "
+                  f"equal; {total / statistics.median(walls[name]):.0f} sigs/s median (runs "
+                  f"{[round(w * 1e3, 1) for w in walls[name]]} ms, in turns); launches exactly "
+                  f"{chunks * k} tree_sum_xyzt and finish_check{extra}")
+    finally:
+        for v in verifiers.values():
+            v.fixed_bucket = None
     sv5 = ShardedCUDAVerifier(ver.registry, virtual_mesh(5))
     sv5._tables = tables
     reset_launch_counters()
@@ -2488,8 +2532,8 @@ def recorded_msms(sizes: list):
         sizes.append(len(points))
         return orig(scalars, points, **kw)
 
-    bls_msm.msm = msm
     try:
+        bls_msm.msm = msm
         yield
     finally:
         bls_msm.msm = orig
@@ -3177,6 +3221,339 @@ def host_layer_phases() -> dict:
         print(f"phase {letter} wall: {time.perf_counter() - t:.2f} s")
     return out
 
+
+
+# -- phase G: the degradation ladder over the card; phase H: the checkers
+
+
+class CardTier:
+    """A ladder tier over a card verifier: answers through it, counts the
+    calls it answered, their rows and the dispatches they made (the inner
+    verifier's own ``total_dispatches``), and while ``broken`` raises
+    ``VerifierUnavailableError`` and reads unhealthy to the ladder's probe
+    (the ``_FlakyTier`` recipe of ``tests/test_resilient.py``, over the
+    card). The quarantine slot is the card verifier's own, so the ladder
+    wires its next tier into the card's containment."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.broken = False
+        self.raised = self.answered = self.rows = self.dispatches = self.probes = 0
+
+    @property
+    def quarantine_verifier(self):
+        return self.inner.quarantine_verifier
+
+    @quarantine_verifier.setter
+    def quarantine_verifier(self, tier):
+        self.inner.quarantine_verifier = tier
+
+    def ping(self) -> bool:
+        self.probes += 1
+        return not self.broken
+
+    def _answer(self, call, rows: int):
+        from dag_rider_tpu_torch.verifier.base import VerifierUnavailableError
+
+        if self.broken:
+            self.raised += 1
+            raise VerifierUnavailableError("the card tier is down (seeded)")
+        d0 = self.inner.total_dispatches
+        out = call()
+        self.answered += 1
+        self.rows += rows
+        self.dispatches += self.inner.total_dispatches - d0
+        return out
+
+    def verify_batch(self, vertices):
+        return self._answer(lambda: self.inner.verify_batch(vertices), len(vertices))
+
+    def verify_rounds(self, rounds):
+        return self._answer(lambda: self.inner.verify_rounds(rounds),
+                            sum(len(r) for r in rounds))
+
+
+class FloorTier:
+    """The ladder's floor, a ``CPUVerifier``, counting apart the rows it
+    verified as the ladder's fallback (``verify_rounds``, the ladder's
+    entry) and as the card's quarantine tier (``verify_batch``)."""
+
+    def __init__(self, registry):
+        from dag_rider_tpu_torch.verifier.cpu import CPUVerifier
+
+        self.cpu = CPUVerifier(registry)
+        self.fallback_rows = self.quarantine_rows = 0
+
+    def verify_batch(self, vertices):
+        self.quarantine_rows += len(vertices)
+        return self.cpu.verify_batch(vertices)
+
+    def verify_rounds(self, rounds):
+        self.fallback_rows += sum(len(r) for r in rounds)
+        return [self.cpu.verify_batch(r) for r in rounds]
+
+
+def contained(ver) -> tuple:
+    return ver.poisoned_windows, ver.quarantined_chunks, ver.quarantine_rejected
+
+
+def make_ladder(card, floor):
+    from dag_rider_tpu_torch.verifier.resilient import ResilientVerifier
+
+    return ResilientVerifier([card, floor], retries=1, seed=SEED, backoff_s=0.001,
+                             probe_interval_s=LADDER_PROBE_S)
+
+
+def wait_promoted(ladder, what: str) -> float:
+    """Seconds until the probe promoted tier 0 back; fails after 10 s."""
+    t0 = time.perf_counter()
+    while not ladder.tier_health()[0]:
+        if time.perf_counter() - t0 > 10.0:
+            fail(f"{what}: the probe never promoted the card tier back")
+        time.sleep(0.005)
+    return time.perf_counter() - t0
+
+
+def ladder_flaky_run(inner, registry, rounds, mask, what: str) -> dict:
+    """G1's flaky run: ``rounds`` in calls of ``LADDER_ROUNDS_PER_CALL``
+    rounds through the ladder, the card tier down for a seeded window of
+    ``LADDER_WINDOW`` calls, then the window cleared and the promotion
+    awaited. Gates: the masks equal ``mask``; one retry and one fallback (the
+    window's first call, retries=1), the card tier raised exactly twice, the
+    floor's rows exactly the window's, nothing quarantined; no fall before
+    the window; the call after the promotion launched on the card; the
+    launches equal the card tier's answered dispatches times the shards."""
+    import numpy as np
+
+    calls = [rounds[i:i + LADDER_ROUNDS_PER_CALL]
+             for i in range(0, len(rounds), LADDER_ROUNDS_PER_CALL)]
+    start = int(np.random.default_rng(SEED + 2).integers(1, len(calls) - LADDER_WINDOW))
+    window = range(start, start + LADDER_WINDOW)
+    k = getattr(inner, "mesh_devices", 1)
+    inner.verify_batch(rounds[0][:8])  # the card tier launches before the ladder exists
+    card, floor = CardTier(inner), FloorTier(registry)
+    g0 = contained(inner)
+    got, promoted_s = [], None
+    try:
+        ladder = make_ladder(card, floor)  # wires the floor into inner's quarantine slot
+        reset_launch_counters()
+        for j, call in enumerate(calls):
+            card.broken = j in window
+            if j == window.stop:
+                promoted_s = wait_promoted(ladder, what)
+                before = read_launch_counters()["tree_sum_xyzt"]
+            got.extend(ladder.verify_rounds(call))
+            if j < start and (ladder.fallbacks_total or ladder.retries_total
+                              or ladder.last_tier):
+                fail(f"{what}: the ladder fell a tier at call {j}, before any fault")
+            if j == window.stop:
+                after = read_launch_counters()["tree_sum_xyzt"]
+                if ladder.last_tier != 0 or after - before != k:
+                    fail(f"{what}: the call after the promotion went to tier "
+                         f"{ladder.last_tier} with {after - before} tree launches, want the "
+                         f"card's {k}")
+        launches = read_launch_counters()
+    finally:
+        inner.quarantine_verifier = None
+    win_rows = sum(len(r) for j in window for r in calls[j])
+    want = want_launches(card.dispatches * k, [])
+    gauges = {"retries": ladder.retries_total, "fallbacks": ladder.fallbacks_total,
+              "exhausted": ladder.exhausted_total, "raised": card.raised,
+              "floor_rows": floor.fallback_rows, "quarantine_rows": floor.quarantine_rows,
+              "answered": card.answered, "dispatches": card.dispatches}
+    plan = {"retries": 1, "fallbacks": 1, "exhausted": 0, "raised": 2, "floor_rows": win_rows,
+            "quarantine_rows": 0, "answered": len(calls) - LADDER_WINDOW,
+            "dispatches": len(calls) - LADDER_WINDOW}
+    if flat_mask(got) != mask:
+        fail(f"{what}: the ladder's masks differ from the oracle-checked mask")
+    if gauges != plan or contained(inner) != g0:
+        fail(f"{what}: gauges {gauges}, want the seeded plan's {plan}; contained "
+             f"{contained(inner)} (was {g0})")
+    if launches != want or ladder.tier_health() != [True, True]:
+        fail(f"{what}: launches {launches}, want {want}; health {ladder.tier_health()}")
+    print(f"  {what}: {len(calls)} calls of {LADDER_ROUNDS_PER_CALL} rounds, the card tier down "
+          f"for calls {window.start}-{window.stop - 1} (seeded): masks equal; retries 1, "
+          f"fallbacks 1, the floor verified {win_rows} rows, the card {card.rows}; promoted "
+          f"{promoted_s * 1e3:.0f} ms after the window (probe every "
+          f"{LADDER_PROBE_S * 1e3:.0f} ms, {card.probes} probes) and the next call launched on "
+          f"the card; launches {launches}")
+    return launches
+
+
+def ladder_verify_phase(ver, rounds, mask) -> dict:
+    """Phase G1: the verify phase's 4,096 rows through
+    ``ResilientVerifier([card tier over ver, CPUVerifier floor], retries=1)``:
+    streamed in chunks of ``STREAM_BUCKET`` with the verify phase's
+    containment faults armed on the card (two ``dispatch_raise``, then two ``resolve_raise``):
+    the card's containment quarantines exactly the plan's chunks onto the
+    ladder's floor, the ladder itself sees no exception; then the flaky-tier
+    run on ``ver`` and on a ``ShardedCUDAVerifier`` over ``mesh_from_env()``.
+    Returns each run's launches."""
+    from dag_rider_tpu_torch.parallel.mesh import mesh_from_env
+    from dag_rider_tpu_torch.parallel.sharded_verifier import ShardedCUDAVerifier
+    from dag_rider_tpu_torch.verifier.faults import VerifierFaultInjector, VerifierFaultPlan
+
+    t_phase = time.perf_counter()
+    total = sum(len(r) for r in rounds)
+    chunks = -(-total // STREAM_BUCKET)
+    out = {}
+    print(f"phase G1, the ladder over the card ({total} rows, {len(rounds)} rounds):")
+    depth0 = ver.pipeline_depth
+    try:
+        ver.fixed_bucket = STREAM_BUCKET
+        ver.pipeline_depth = 2
+        card, floor = CardTier(ver), FloorTier(ver.registry)
+        ladder = make_ladder(card, floor)
+        if ver.quarantine_verifier is not floor:
+            fail("G1: the ladder did not wire its floor into the card's quarantine slot")
+        # the seeded plan at depth 2: the two dispatch faults each poison a
+        # window with nothing in flight and quarantine their own chunk, which
+        # never launched; the first resolve fault poisons the window and its
+        # salvage of the next in-flight chunk takes the second, so both chunks
+        # (already launched) are quarantined
+        plans = {"dispatch_raise": ((2, 2, 0), chunks - 2), "resolve_raise": ((1, 2, 0), chunks)}
+        for kind, seed in (("dispatch_raise", SEED), ("resolve_raise", SEED + 1)):
+            g0, q0, d0 = contained(ver), floor.quarantine_rows, card.dispatches
+            inj = VerifierFaultInjector(VerifierFaultPlan(**{kind: 1.0}, max_faults=2, seed=seed))
+            reset_launch_counters()
+            try:
+                inj.arm(ver)
+                got = ladder.verify_rounds(rounds)
+            finally:
+                inj.disarm()
+            launches = read_launch_counters()
+            g = tuple(a - b for a, b in zip(contained(ver), g0))
+            q_rows, dispatched = floor.quarantine_rows - q0, card.dispatches - d0
+            (want_g, want_d) = plans[kind]
+            if flat_mask(got) != mask:
+                fail(f"G1 {kind}: the ladder's masks differ from the oracle-checked mask")
+            if (inj.faults_injected, g, q_rows, dispatched) != (2, want_g, 2 * STREAM_BUCKET, want_d):
+                fail(f"G1 {kind}: faults {inj.faults_injected}, contained {g}, floor quarantine "
+                     f"rows {q_rows}, dispatches {dispatched}; want 2, {want_g}, "
+                     f"{2 * STREAM_BUCKET}, {want_d}")
+            if (ladder.retries_total, ladder.fallbacks_total, ladder.last_tier,
+                    floor.fallback_rows) != (0, 0, 0, 0):
+                fail(f"G1 {kind}: the ladder fell a tier (retries {ladder.retries_total}, "
+                     f"fallbacks {ladder.fallbacks_total}) for a fault the card contained")
+            if launches != want_launches(dispatched, []):
+                fail(f"G1 {kind}: launches {launches}, want {want_launches(dispatched, [])}")
+            out[f"G1 {kind}"] = launches
+            print(f"  containment {kind} (max_faults 2, seed {seed}): masks equal; windows "
+                  f"poisoned {g[0]}, chunks quarantined {g[1]}: {q_rows} rows re-verified on the "
+                  f"floor, {total - q_rows} on the card; rejected {g[2]}; the ladder saw no "
+                  f"exception; launches {launches}")
+    finally:
+        ver.fixed_bucket = None
+        ver.pipeline_depth = depth0
+        ver.quarantine_verifier = None
+    out["G1 flaky"] = ladder_flaky_run(ver, ver.registry, rounds, mask, "flaky card tier")
+    sharded = ShardedCUDAVerifier(ver.registry, mesh_from_env())
+    sharded._tables = ver.comb_tables()
+    out["G1 flaky sharded"] = ladder_flaky_run(sharded, ver.registry, rounds, mask,
+                                               f"flaky tier on {sharded.mesh!r}")
+    print(f"phase G1 wall: {time.perf_counter() - t_phase:.2f} s")
+    return out
+
+
+def ladder_consensus_phase(ref) -> dict:
+    """Phase G2: phase 8's cluster (n = 256, card-MSM coins, 3 decided waves,
+    the same number of ``run`` calls) with ``ResilientVerifier([card tier
+    over the phase's CUDAVerifier, CPUVerifier floor], retries=1)`` as its
+    shared verifier (the simulator takes the ladder's synchronous
+    ``verify_rounds`` path). The card tier is down for ``LADDER_DOWN``
+    seeded cycles mid-run, then cleared and promoted. Gates: logs, leaders,
+    decided waves and messages byte-identical to the host-oracle log phase
+    8 checked; one retry and one fallback; ``verify_fallback_tier`` 1 in the
+    process metrics at the end of the stretch; after the promotion the card
+    answers every remaining cycle and the floor none; launches exactly the
+    card tier's dispatches and the coin MSMs'; nothing contained."""
+    import numpy as np
+
+    from dag_rider_tpu_torch import Config
+
+    t_phase = time.perf_counter()
+    n = CONS_N
+    cfg = Config(n=n, coin="threshold_bls", propose_empty=True, gc_depth=24)
+    ver = ref["verifier"]
+    calls = ref["calls"]
+    start = int(np.random.default_rng(SEED + 3).integers(2, max(3, calls // 2)))
+    stop = start + LADDER_DOWN
+    card, floor = CardTier(ver), FloorTier(ver.registry)
+    g0 = contained(ver)
+    seen = {}
+
+    def between(done, sim):
+        if done < start and (ladder.fallbacks_total or ladder.retries_total):
+            fail(f"G2: the ladder fell a tier after call {done}, before any fault")
+        if done == start:
+            card.broken = True
+        elif done == stop:
+            seen["tier_in_metrics"] = sim.processes[0].metrics.snapshot().get(
+                "verify_fallback_tier")
+            seen["floor_rows"] = floor.fallback_rows
+            card.broken = False
+            seen["promoted_s"] = wait_promoted(ladder, "G2")
+            seen["answered"] = card.answered
+            seen["tree"] = read_launch_counters()["tree_sum_xyzt"]
+
+    msm_sizes = []
+    try:
+        ladder = make_ladder(card, floor)  # wires the floor into ver's quarantine slot
+        sim, oracle, msgs, done, wall, spent, _ = drive_cluster(
+            cfg, ref["keys"], ref["signers"], msm_recorder(msm_sizes, []), verifier=ladder,
+            calls=calls, between=between)
+        launches = read_launch_counters()
+    finally:
+        ver.quarantine_verifier = None
+    logs = [[(v.id.round, v.id.source, v.digest()) for v in d] for d in sim.deliveries]
+    if logs != ref["logs"]:
+        bad = [i for i, (a, b) in enumerate(zip(logs, ref["logs"])) if a != b]
+        fail(f"G2: logs differ from the host oracle's at views {bad[:10]}")
+    if oracle._sigma != ref["sigma"] or msgs != ref["msgs"] or (
+            [p.decided_wave for p in sim.processes] != ref["decided"]):
+        fail("G2: leaders, messages or decided waves differ from the host oracle's")
+    gauges = (ladder.retries_total, ladder.fallbacks_total, ladder.exhausted_total, card.raised,
+              floor.quarantine_rows)
+    if gauges != (1, 1, 0, 2, 0) or contained(ver) != g0:
+        fail(f"G2: retries, fallbacks, exhausted, raised, quarantined rows {gauges}, want "
+             f"(1, 1, 0, 2, 0); contained {contained(ver)} (was {g0})")
+    if seen.get("tier_in_metrics") != 1 or "verify_fallback_tier" not in (
+            sim.processes[0].metrics.snapshot()):
+        fail(f"G2: verify_fallback_tier {seen.get('tier_in_metrics')} in the process metrics "
+             f"at the end of the stretch, want 1")
+    after = card.answered - seen["answered"]
+    if (floor.fallback_rows != seen["floor_rows"] or after <= 0
+            or launches["tree_sum_xyzt"] <= seen["tree"] or ladder.last_tier != 0):
+        fail(f"G2: after the promotion the card answered {after} calls, the floor "
+             f"{floor.fallback_rows - seen['floor_rows']} rows, last tier {ladder.last_tier}")
+    want = want_launches(card.dispatches, msm_sizes)
+    if launches != want:
+        fail(f"G2: launches {launches}, want {want} ({card.dispatches} card dispatches)")
+    print(f"phase G2, consensus through the ladder (n {n}, {done} runs, the card tier down "
+          f"for runs {start + 1}-{stop}, seeded): logs of all {n} views, "
+          f"{len(oracle._sigma)} leaders and decided waves byte-identical to the host oracle's; "
+          f"retries 1, fallbacks 1, verify_fallback_tier 1 at the stretch's end; the floor "
+          f"verified {floor.fallback_rows} rows; promoted {seen['promoted_s'] * 1e3:.0f} ms "
+          f"after, then the card answered {after} calls ({card.dispatches} dispatches in all); "
+          f"launches {launches}; wall {wall:.2f} s (phase 8's card run {ref['wall']:.2f} s); "
+          f"host split: {split_line(spent)}")
+    print(f"phase G2 wall: {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
+def checkers_phase() -> None:
+    """Phase H: the port's checkers (``python -m dag_rider_tpu_torch.analysis
+    --budget-s 30``) in a subprocess on this machine (no JAX): exit 0 and
+    ``clean``. Launches nothing."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "dag_rider_tpu_torch.analysis", "--budget-s",
+                           "30"], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines:
+        print(f"  checkers: {line}")
+    if proc.returncode != 0 or not lines or not lines[-1].startswith("clean"):
+        fail(f"H: the checkers exited {proc.returncode}: {proc.stderr.strip()[-2000:]}")
+    print(f"phase H wall: {time.perf_counter() - t0:.2f} s")
 
 if __name__ == "__main__":
     sys.exit(main())

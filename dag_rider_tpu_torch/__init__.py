@@ -39,4 +39,6 @@ The package imports torch and numpy, never jax and nothing of
 from dag_rider_tpu_torch.config import Config
 from dag_rider_tpu_torch.core.types import Block, Vertex, VertexID
 
-__all__ = ["Config", "Block", "Vertex", "VertexID"]
+__version__ = "0.1.0"
+
+__all__ = ["Config", "Block", "Vertex", "VertexID", "__version__"]

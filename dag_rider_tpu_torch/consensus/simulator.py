@@ -231,9 +231,9 @@ class Simulation:
         run there too. "sharded" is
         :class:`~dag_rider_tpu_torch.parallel.sharded_verifier.ShardedCUDAVerifier`
         over ``mesh_from_env()`` (``DAGRIDER_MESH`` entries; a CPU mesh when
-        ``device`` is "cpu"). ``cert_msm`` None is the port's default, "device";
-        ``cert_pair`` None reads DAGRIDER_CERT_PAIR when it is set and is
-        "device" otherwise."""
+        ``device`` is "cpu"). ``cert_msm`` None reads DAGRIDER_CERT_MSM and
+        ``cert_pair`` None reads DAGRIDER_CERT_PAIR when the environment sets
+        them; each is "device" otherwise."""
         from dag_rider_tpu_torch.verifier.base import (
             CertSigner,
             KeyRegistry,
@@ -255,7 +255,7 @@ class Simulation:
             cert_verifier = CertVerifier(
                 reg,
                 self.cfg.quorum,
-                msm="device" if cert_msm is None else cert_msm,
+                msm=cert_msm,
                 device=device,
                 pair=cert_pair,
             )

@@ -40,6 +40,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from dag_rider_tpu_torch import config
 from dag_rider_tpu_torch.ops import cuda_group381 as G, field381 as F
 
 R_INT = 0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001
@@ -209,6 +210,17 @@ def unpack_point(X, Y, Z) -> Optional[tuple]:
     return (xi * z_inv % P_INT, yi * z_inv % P_INT)
 
 
+def check_msm_knob() -> None:
+    """DAGRIDER_MSM_PALLAS (default 1). The reference's 0 pins its jnp
+    tree on a TPU; the port has no plain route on the card, so 0 raises."""
+    if not config.env_flag("DAGRIDER_MSM_PALLAS"):
+        raise ValueError(
+            "DAGRIDER_MSM_PALLAS=0 has no port route: the device of the "
+            "tensors decides (a CPU tensor takes the plain torch version, a "
+            "CUDA tensor launches the kernels); leave it unset or 1"
+        )
+
+
 def msm(
     scalars: Sequence[int], points: Sequence[tuple], device=None
 ) -> Optional[tuple]:
@@ -222,6 +234,7 @@ def msm(
 
     Returns an affine (x, y) tuple, or None for the identity.
     """
+    check_msm_knob()
     dev = resolve_device(device)
     t = _pad(len(points))
     arrays = pack_inputs(scalars, points, t)

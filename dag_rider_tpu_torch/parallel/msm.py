@@ -49,6 +49,7 @@ class ShardedMSM:
 
     def window_partials(self, scalars: Sequence[int], points: Sequence[tuple]) -> torch.Tensor:
         """Each entry's 64 window sums, on the first entry: [D, 99, 64]."""
+        bls_msm.check_msm_knob()
         t = padded_size(len(points), self.n_shards)
         arrays = bls_msm.pack_inputs(scalars, points, t)
         first = self.mesh.devices[0]

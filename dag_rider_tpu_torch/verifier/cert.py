@@ -43,6 +43,20 @@ from dag_rider_tpu_torch.verifier.base import KeyRegistry
 _VERDICT_CACHE_MAX = 4096
 
 
+def _resolve_msm(msm: Optional[str]) -> str:
+    """The certificate MSM backend: ``msm``, else DAGRIDER_CERT_MSM when
+    the environment sets it, else "device" (the port's default; the
+    registry's "host" default is the reference's)."""
+    if msm is None:
+        in_env = config.env_is_set("DAGRIDER_CERT_MSM")
+        msm = config.env_choice("DAGRIDER_CERT_MSM") if in_env else "device"
+    if msm not in ("host", "device", "sharded"):
+        raise ValueError(
+            f'cert MSM must be "host", "device" or "sharded", got {msm!r}'
+        )
+    return msm
+
+
 def _resolve_pair(pair: Optional[str]) -> str:
     """The aggregate-pairing backend: ``pair``, else DAGRIDER_CERT_PAIR
     when the environment sets it, else "device" (the port's default, as
@@ -62,10 +76,11 @@ class CertVerifier:
     Args:
         registry: the cluster PKI; must carry ``bls_public_keys``.
         quorum: minimum signer count a certificate must cover (2f+1).
-        msm: "device" (the default: the G1 MSM of ``ops.bls_msm``),
-            "sharded" (``parallel.msm.ShardedMSM`` over every card, or 8
-            CPU entries when ``device`` is "cpu") or "host" (the group law,
-            the oracle, only when asked for); bit-identical aggregates.
+        msm: "device" (the G1 MSM of ``ops.bls_msm``), "sharded"
+            (``parallel.msm.ShardedMSM`` over every card, or 8 CPU entries
+            when ``device`` is "cpu") or "host" (the group law, the oracle,
+            only when asked for); bit-identical aggregates. None reads
+            DAGRIDER_CERT_MSM when it is set and is "device" otherwise.
         device: where a "device" or "sharded" MSM and a "device" pairing
             run: ``cuda`` unless the caller passes ``"cpu"`` (the plain
             torch path).
@@ -81,7 +96,7 @@ class CertVerifier:
         self,
         registry: KeyRegistry,
         quorum: int,
-        msm: str = "device",
+        msm: Optional[str] = None,
         device=None,
         pair: Optional[str] = None,
     ) -> None:
@@ -90,10 +105,7 @@ class CertVerifier:
                 "CertVerifier needs a registry with BLS certificate keys "
                 "(KeyRegistry.generate_with_cert)"
             )
-        if msm not in ("host", "device", "sharded"):
-            raise ValueError(
-                f'cert MSM must be "host", "device" or "sharded", got {msm!r}'
-            )
+        msm = _resolve_msm(msm)
         self.pair = _resolve_pair(pair)
         self.registry = registry
         self.quorum = int(quorum)

@@ -246,7 +246,8 @@ class CUDAVerifier(Verifier):
     ``comb`` None reads ``DAGRIDER_COMB`` (default on): the fixed-key comb
     path; ``comb=False`` is the windowed path, the reference's
     differential oracle, with the same accept masks.
-    ``DAGRIDER_COMB_BITS`` picks 4-bit (the default) or 8-bit comb windows."""
+    ``DAGRIDER_COMB_BITS`` picks 4-bit (the default) or 8-bit comb windows.
+    ``DAGRIDER_PALLAS_GROUP=0`` raises: the device decides the route."""
 
     def __init__(
         self,
@@ -254,6 +255,14 @@ class CUDAVerifier(Verifier):
         comb: Optional[bool] = None,
         device: Optional[torch.device | str] = None,
     ):
+        if not config.env_flag("DAGRIDER_PALLAS_GROUP"):
+            # the reference's 0 pins its jnp group ops on a TPU; the port
+            # has no plain route on the card
+            raise ValueError(
+                "DAGRIDER_PALLAS_GROUP=0 has no port route: the device of the "
+                "tensors decides (a CPU tensor takes the plain torch version, "
+                "a CUDA tensor launches the kernel); leave it unset or 1"
+            )
         if comb is None:
             comb = config.env_flag("DAGRIDER_COMB")
         self._comb = bool(comb)

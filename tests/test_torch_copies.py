@@ -7,7 +7,13 @@ the AST, so they may differ. The declared seams are the only other
 allowed difference, and each is named here: ``scenarios._coin_factory``
 and ``scenarios.run_scenario`` take a ``device`` keyword and pass it to
 the coins, so ``device`` is taken out of those two functions' signatures
-and calls before the comparison. A copy cannot drift unseen.
+and calls before the comparison. The checkers' copies (``analysis/``) have
+two more kinds of declared seam: strings that name the port's own root
+script (``STRINGS``, mapped back before the comparison), and functions whose bodies are the
+port's own (``OWN``: ``run_static`` leaves out the unported ``jitpure`` and
+``shapes``, the runner's ``main`` names them), each pinned by a test of
+its behaviour in ``tests/test_torch_analysis.py``. A copy cannot drift
+unseen.
 """
 
 import ast
@@ -35,13 +41,52 @@ COPIES = {
     "obs/export.py": (),
     "obs/report.py": (),
     "crypto/dkg.py": (),
+    # the frame auth and the degradation ladder
+    "transport/auth.py": (),
+    "verifier/resilient.py": (),
+    "verifier/cpu.py": (),
+    # the checkers (driderlint)
+    **{f"analysis/{m}.py": () for m in (
+        "core", "allowlist", "knobs", "determinism", "oracle", "metricsreg", "events",
+        "flow", "locks", "release", "ladder", "races", "__init__", "__main__")},
+    # host modules that were already identical copies
+    **{m: () for m in (
+        "consensus/__init__.py", "consensus/dag_state.py", "consensus/invariants.py",
+        "consensus/process.py", "core/__init__.py", "core/codec.py", "core/stack.py",
+        "core/types.py", "crypto/ed25519.py", "crypto/threshold.py", "epoch/__init__.py",
+        "epoch/manager.py", "obs/__init__.py", "obs/flight.py", "obs/recorder.py",
+        "transport/__init__.py", "transport/base.py", "transport/memory.py",
+        "transport/rbc.py", "utils/metrics.py", "utils/slog.py", "verifier/pipeline.py",
+        "verifier/prep.py")},
+}
+
+#: module path -> {port string: reference string}, mapped back before the
+#: comparison
+STRINGS = {
+    "analysis/core.py": {"chip_smoke.py": "bench.py"},
+}
+
+#: module path -> functions whose bodies are the port's own (the signature
+#: is still compared)
+OWN = {
+    "analysis/core.py": ("run_static",),
+    "analysis/__main__.py": ("main",),
+}
+
+#: module path -> module-level names only the port defines or imports
+OWN_NAMES = {
+    "analysis/core.py": ("UNPORTED",),
+    "analysis/__main__.py": ("UNPORTED",),
 }
 
 
 class _Normalise(ast.NodeTransformer):
-    def __init__(self, seams):
+    def __init__(self, seams, strings=None, own=(), own_names=()):
         self.seams = set(seams)
         self.in_seam = 0
+        self.strings = strings or {}
+        self.own = set(own)
+        self.own_names = set(own_names)
 
     def _strip_docstring(self, node):
         body = node.body
@@ -53,7 +98,24 @@ class _Normalise(ast.NodeTransformer):
 
     def visit_Module(self, node):
         self._strip_docstring(node)
+        node.body = [
+            st for st in node.body
+            if not (isinstance(st, (ast.Assign, ast.AnnAssign)) and {
+                t.id for t in (st.targets if isinstance(st, ast.Assign) else [st.target])
+                if isinstance(t, ast.Name)} & self.own_names)
+        ]
         return self.generic_visit(node)
+
+    def visit_Constant(self, node):
+        if isinstance(node.value, str):
+            for port, ref in self.strings.items():
+                node.value = node.value.replace(port, ref)
+        return node
+
+    def visit_ImportFrom(self, node):
+        if self.own_names:
+            node.names = [a for a in node.names if a.name not in self.own_names]
+        return node
 
     def visit_ClassDef(self, node):
         self._strip_docstring(node)
@@ -61,6 +123,8 @@ class _Normalise(ast.NodeTransformer):
 
     def _visit_function(self, node):
         self._strip_docstring(node)
+        if node.name in self.own:
+            node.body = [ast.Pass()]
         seam = node.name in self.seams
         if seam:
             args = node.args
@@ -84,8 +148,9 @@ class _Normalise(ast.NodeTransformer):
         return self.generic_visit(node)
 
 
-def normalised(path: Path, seams=()) -> str:
-    tree = _Normalise(seams).visit(ast.parse(path.read_text(), filename=str(path)))
+def normalised(path: Path, seams=(), strings=None, own=(), own_names=()) -> str:
+    tree = _Normalise(seams, strings, own, own_names).visit(
+        ast.parse(path.read_text(), filename=str(path)))
     return ast.dump(tree).replace("dag_rider_tpu_torch", "dag_rider_tpu")
 
 
@@ -99,11 +164,28 @@ def test_the_normaliser_sees_a_drift():
         _Normalise(()).visit(ast.parse(ref)))
 
 
+def test_the_normaliser_maps_only_declared_seams():
+    """A declared string maps back, a declared own function's body and a
+    declared own name drop out; anything else still differs."""
+    def norm(src, **kw):
+        return ast.dump(_Normalise((), **kw).visit(ast.parse(src)))
+
+    ref = "from m import h\nX = 1\ndef f():\n    return 'bench.py'\ndef g():\n    return 1\n"
+    port = ("from m import OWN, h\nX = 1\nOWN = 2\ndef f():\n    return 'chip_smoke.py'\n"
+            "def g():\n    return OWN\n")
+    seams = {"strings": {"chip_smoke.py": "bench.py"}, "own": ("g",), "own_names": ("OWN",)}
+    assert norm(port, **seams) == norm(ref, own=("g",))
+    assert norm(port, strings={"chip_smoke.py": "bench.py"}, own=("g",)) != norm(ref, own=("g",))
+    assert norm(port.replace("return 'chip", "return 'a_chip"), **seams) != norm(ref, own=("g",))
+
+
 @pytest.mark.parametrize("rel", sorted(COPIES))
 def test_port_module_is_a_copy(rel):
     port = ROOT / "dag_rider_tpu_torch" / rel
     ref = ROOT / "dag_rider_tpu" / rel
-    assert normalised(port, COPIES[rel]) == normalised(ref), (
+    own = OWN.get(rel, ())
+    assert normalised(port, COPIES[rel], STRINGS.get(rel), own, OWN_NAMES.get(rel, ())) == \
+        normalised(ref, own=own), (
         f"dag_rider_tpu_torch/{rel} differs from dag_rider_tpu/{rel} beyond its imports "
         f"and declared seams {COPIES[rel]}")
 

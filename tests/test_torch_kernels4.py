@@ -182,13 +182,16 @@ def test_coin_device_msm_without_card_raises(monkeypatch):
     assert cpu._msm.keywords["device"].type == "cpu"
 
 
-def test_coin_msm_none_raises():
+def test_coin_msm_none_raises(monkeypatch):
     """``msm`` takes the spellings ``CertVerifier`` takes: None is not a
-    second name for "host"."""
+    second name for "host". ``CertVerifier``'s None reads DAGRIDER_CERT_MSM
+    as the reference's does, and is "device" when the knob is unset: on
+    this machine, with no card, that raises too."""
     keys = port_keys(jth.ThresholdKeys.generate(4, 2, seed=b"coin-default"))
     with pytest.raises(ValueError, match="coin MSM"):
         ThresholdCoin(keys, 0, 4, msm=None)
-    with pytest.raises(ValueError, match="cert MSM"):
+    monkeypatch.delenv("DAGRIDER_CERT_MSM", raising=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         CertVerifier(KeyRegistry.generate_with_cert(4)[0], 3, msm=None)
 
 

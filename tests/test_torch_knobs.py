@@ -3,11 +3,15 @@
 One case per row of the knob table: each knob either takes the port's real
 branch (``DAGRIDER_COMB``, ``DAGRIDER_COMB_BITS``, ``DAGRIDER_PREP_WORKERS``,
 ``DAGRIDER_NATIVE``, ``DAGRIDER_CERT_SIGN``, ``DAGRIDER_CERT_PAIR``,
-``DAGRIDER_CERT_MSM``'s "sharded" value, ``DAGRIDER_MESH``) or, where the
-port has no such branch, raises — never a quiet fall-through to another
-route (``DAGRIDER_SHARDED_COMB_IMPL`` names JAX implementations). The seams
-that once raised for an unported module (lanes, the mempool, DKG
-rotation) now build what the reference builds.
+``DAGRIDER_CERT_MSM`` with each of its values, ``DAGRIDER_MESH``) or, where
+the port has no such branch, raises — never a quiet fall-through to another
+route (``DAGRIDER_SHARDED_COMB_IMPL`` names JAX implementations,
+``DAGRIDER_PALLAS_GROUP=0`` and ``DAGRIDER_MSM_PALLAS=0`` a plain route on the
+card). ``CertVerifier(msm="sharded")`` as an argument is a case of its own.
+A scan of the whole port holds every registered knob to that rule. The seams
+that once raised for an unported module (lanes, the mempool, DKG rotation)
+now build what the reference builds, and the package surfaces re-export
+the reference's names.
 """
 
 import warnings
@@ -235,3 +239,211 @@ def test_cert_msm_sharded_gives_the_host_bytes(cert_reg):
     assert (sim.cert_verifier.msm, sim.cert_verifier.device.type) == ("sharded", "cpu")
     with pytest.raises(ValueError, match='"host", "device" or "sharded"'):
         CertVerifier(cert_reg, 3, msm="gpu", device="cpu")
+
+
+# -- DAGRIDER_CERT_MSM / CertVerifier(msm=None) ------------------------------
+
+
+@pytest.mark.parametrize("value", ["host", "device", "sharded"])
+def test_cert_msm_knob_is_read(cert_reg, monkeypatch, value):
+    """msm=None reads DAGRIDER_CERT_MSM when it is set (each value); the
+    argument beats the knob."""
+    monkeypatch.setenv("DAGRIDER_CERT_MSM", value)
+    assert CertVerifier(cert_reg, 3, pair="host", device="cpu").msm == value
+    other = "device" if value == "host" else "host"
+    assert CertVerifier(cert_reg, 3, msm=other, pair="host", device="cpu").msm == other
+    monkeypatch.setenv("DAGRIDER_CERT_MSM", "gpu")
+    with pytest.raises(ValueError, match="DAGRIDER_CERT_MSM"):
+        CertVerifier(cert_reg, 3, pair="host", device="cpu")
+
+
+def test_cert_msm_knob_unset_is_device_and_simulation_passes_none(cert_reg, monkeypatch):
+    """Unset, msm=None is "device"; Simulation(cert_msm=None) hands None to
+    CertVerifier, so the knob reaches the cluster's certificate verifier."""
+    monkeypatch.delenv("DAGRIDER_CERT_MSM", raising=False)
+    assert CertVerifier(cert_reg, 3, pair="host", device="cpu").msm == "device"
+
+    def sim_msm():
+        sim = Simulation(Config(n=4, coin="round_robin"), verifier="cpu", cert=True,
+                         cert_pair="host", device="cpu")
+        return sim.cert_verifier.msm
+
+    assert sim_msm() == "device"
+    monkeypatch.setenv("DAGRIDER_CERT_MSM", "host")
+    assert sim_msm() == "host"
+    monkeypatch.setenv("DAGRIDER_CERT_MSM", "sharded")
+    assert sim_msm() == "sharded"
+
+
+# -- DAGRIDER_PALLAS_GROUP / DAGRIDER_MSM_PALLAS ------------------------------
+
+
+@pytest.mark.parametrize("value", ["0", "1", None])
+def test_pallas_group_knob_zero_raises(reg, monkeypatch, value):
+    """0 asked the reference for its jnp group ops on a TPU; the port has
+    no plain route on the card (the device of the tensors decides), so 0
+    raises naming the knob and the rule; 1 (the default) changes nothing."""
+    if value is None:
+        monkeypatch.delenv("DAGRIDER_PALLAS_GROUP", raising=False)
+    else:
+        monkeypatch.setenv("DAGRIDER_PALLAS_GROUP", value)
+    if value == "0":
+        with pytest.raises(ValueError, match="DAGRIDER_PALLAS_GROUP=0.*device of the tensors"):
+            CUDAVerifier(reg, device="cpu")
+        with pytest.raises(ValueError, match="DAGRIDER_PALLAS_GROUP"):
+            ShardedCUDAVerifier(reg, M.make_mesh(2, device="cpu"), comb=False)
+    else:
+        assert CUDAVerifier(reg, device="cpu").u8_cols == 131
+
+
+@pytest.mark.parametrize("value", ["0", "1", None])
+def test_msm_pallas_knob_zero_raises(monkeypatch, value):
+    """As DAGRIDER_PALLAS_GROUP, for the G1 MSM: ``bls_msm.msm`` (the
+    counterpart of the reference's ``msm_impl``) and ``ShardedMSM``."""
+    from dag_rider_tpu_torch.ops import bls_msm
+    from dag_rider_tpu_torch.parallel.msm import ShardedMSM
+
+    if value is None:
+        monkeypatch.delenv("DAGRIDER_MSM_PALLAS", raising=False)
+    else:
+        monkeypatch.setenv("DAGRIDER_MSM_PALLAS", value)
+    g = bls.G1_GEN
+    if value == "0":
+        with pytest.raises(ValueError, match="DAGRIDER_MSM_PALLAS=0.*device of the tensors"):
+            bls_msm.msm([1], [g], device="cpu")
+        with pytest.raises(ValueError, match="DAGRIDER_MSM_PALLAS"):
+            ShardedMSM(M.make_mesh(2, device="cpu")).window_partials([1], [g])
+    else:
+        assert bls_msm.check_msm_knob() is None
+
+
+# -- every registered knob is read or refused ---------------------------------
+
+
+def _string_constants(path):
+    import ast
+
+    return [n for n in ast.walk(ast.parse(path.read_text(), filename=str(path)))
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)]
+
+
+def _knob_reads_and_refusals(pkg):
+    """(knobs passed as literals to a config accessor, knobs named in a
+    ``raise``) over every module of ``pkg``."""
+    import ast
+
+    accessors = {"env_flag", "env_str", "env_choice", "env_int", "env_opt_int",
+                 "env_float", "env_is_set"}
+    read, refused = set(), set()
+    for path in pkg.rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+            if isinstance(node, ast.Call):
+                f = node.func
+                name = f.attr if isinstance(f, ast.Attribute) else getattr(f, "id", None)
+                if (name in accessors and node.args and isinstance(node.args[0], ast.Constant)
+                        and isinstance(node.args[0].value, str)):
+                    read.add(node.args[0].value)
+            elif isinstance(node, ast.Raise):
+                refused.update(c.value for c in ast.walk(node)
+                               if isinstance(c, ast.Constant) and isinstance(c.value, str))
+    return read, refused
+
+
+def test_every_registered_knob_is_read_where_the_reference_reads_it():
+    """Each knob of the port's registry that the reference PACKAGE reads is
+    read in the port through an env_* accessor, or named in a raise. The
+    knobs that only ``bench.py``, ``scripts/`` or ``tests/conftest.py`` read
+    (benchmark outputs, the cluster script, the race hook) have no port
+    reader yet, and the scan of the reference proves that is all they are.
+    Faults 4, 6, 8 and 9 of the ROADMAP were this rule broken."""
+    from pathlib import Path
+
+    from dag_rider_tpu_torch.config import KNOBS
+
+    root = Path(__file__).resolve().parents[1]
+    read, refused_strings = _knob_reads_and_refusals(root / "dag_rider_tpu_torch")
+    refused = {k for k in KNOBS if any(k in s for s in refused_strings)}
+    ref_pkg = root / "dag_rider_tpu"
+    in_ref = set()
+    for path in ref_pkg.rglob("*.py"):
+        if path.relative_to(ref_pkg).as_posix() == "config.py":
+            continue
+        in_ref.update(c.value for c in _string_constants(path) if c.value in KNOBS)
+    missing = sorted(k for k in in_ref if k not in read and k not in refused)
+    assert not missing, f"knobs the reference package reads and the port neither reads nor refuses: {missing}"
+    outside = set(KNOBS) - in_ref - read
+    for k in outside:
+        readers = [p for p in (root / "bench.py", root / "tests" / "conftest.py",
+                               *sorted((root / "scripts").glob("*.py")))
+                   if any(c.value == k for c in _string_constants(p))]
+        assert readers, f"{k} is registered but read nowhere in the repo"
+    for k in ("DAGRIDER_CERT_MSM", "DAGRIDER_VERIFY_RETRY", "DAGRIDER_VERIFY_FALLBACK"):
+        assert k in read
+    assert {"DAGRIDER_PALLAS_GROUP", "DAGRIDER_MSM_PALLAS"} <= read & refused
+
+
+# -- the package surfaces -----------------------------------------------------
+
+#: package __init__ -> (names only the reference exports, names only the port
+#: exports): the JAX sharding helper stays behind, the sharded verifier is
+#: the card's, and the port's mesh has its own constructors
+SURFACE_EXCEPTIONS = {
+    "parallel/__init__.py": ({"ShardedTPUVerifier", "batch_sharding"},
+                             {"ShardedCUDAVerifier", "Mesh", "mesh_from_env", "virtual_mesh"}),
+}
+
+
+def _module_all(path):
+    import ast
+
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id == "__all__" for t in node.targets):
+            return ast.literal_eval(node.value)
+    return None
+
+
+def test_package_surfaces_equal_the_reference():
+    """Every ``__all__`` of a module both packages have is the reference's,
+    but for the named exceptions; the names import on a machine with no
+    card, and importing the surfaces builds or loads no card module."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    ref, port = root / "dag_rider_tpu", root / "dag_rider_tpu_torch"
+    shared = 0
+    for rp in sorted(ref.rglob("*.py")):
+        rel = rp.relative_to(ref).as_posix()
+        pp = port / rel
+        if not pp.exists():
+            continue
+        want, got = _module_all(rp), _module_all(pp)
+        if want is None and got is None:
+            continue
+        shared += 1
+        only_ref, only_port = SURFACE_EXCEPTIONS.get(rel, (set(), set()))
+        assert set(want or ()) - only_ref == set(got or ()) - only_port, rel
+        assert only_ref <= set(want) and only_port <= set(got), rel
+    assert shared >= 10
+    import dag_rider_tpu
+    import dag_rider_tpu_torch
+
+    assert dag_rider_tpu_torch.__version__ == dag_rider_tpu.__version__
+    code = (
+        "import sys\n"
+        "from dag_rider_tpu_torch.verifier import CPUVerifier, KeyRegistry, NullVerifier, "
+        "ResilientVerifier, VertexSigner\n"
+        "from dag_rider_tpu_torch.ops import wave_commit_votes\n"
+        "from dag_rider_tpu_torch.utils import Metrics, Timer, NOOP, EventLog, capture, stdlib_sink\n"
+        "from dag_rider_tpu_torch.crypto import ed25519\n"
+        "from dag_rider_tpu_torch import __version__\n"
+        "card = [m for m in ('dag_rider_tpu_torch.verifier.cuda', "
+        "'dag_rider_tpu_torch.ops.cuda_group', 'dag_rider_tpu_torch.ops.cuda_group381', "
+        "'dag_rider_tpu_torch.ops.cuda_field', 'dag_rider_tpu_torch.utils.build') "
+        "if m in sys.modules]\n"
+        "assert not card, card\n"
+        "assert NullVerifier().verify_batch([None, None]) == [True, True]\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=root, check=True, timeout=120)
