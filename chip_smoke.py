@@ -171,15 +171,38 @@ signatures). The script:
 15. the checkers (phase H, after phases A-F): ``python -m
    dag_rider_tpu_torch.analysis --budget-s 30`` in a subprocess, exit 0 and
    ``clean``;
-16. prints ``{"device_programs": [...]}`` (the pairing's, the ladder's, the
+16. the networked deployment (phase I, after phase H): I1, a
+   ``VerifierSidecarServer`` over a card ``CUDAVerifier`` (warmed up before
+   its port opens) answers the verify phase's 16 rounds shipped by a
+   ``RemoteVerifier`` as whole-round gRPC batches: masks equal to the
+   phase's, one ``tree_sum_xyzt`` and one ``finish_check`` a dispatch, the
+   RPC wall beside the in-process wall (encode, transport, host prep,
+   device); I2, ``BASELINE.json`` config #2's committee (n = 16, 4 waves,
+   1 tx a vertex) as 16 ``Node``s over gRPC on localhost (Bracha RBC,
+   frame auth, ``verifier: "remote"`` to I1's sidecar with the ladder's
+   CPU floor, ``coin_msm: "device"``), run in ``I2_WORKERS`` OS processes:
+   every node decides 4 waves, the 16 logs agree by the audit's rule, each
+   wave's leader is the host coin's, every row the sidecar answered gets
+   the same bit from one ``CPUVerifier`` pass, no frame refused, no ladder
+   retry or fallback, launches exactly the sidecar's dispatches and the
+   nodes' ``ShardedMSM`` plans; then, with the server stopped, a
+   ``RemoteVerifier`` fails closed; I3, the cluster harness as
+   ``scripts/cluster.py --n 4 --seconds 6 --rate 300 --kill auto`` runs
+   the reference's: 4 OS processes of ``python -m
+   dag_rider_tpu_torch.cluster.runner`` over UDS, wire-level load, one
+   seeded kill -9 and a rejoin from checkpoint, then ``audit_cluster``:
+   agreement, no lost or duplicated transaction, liveness, no flight
+   dump (CPU verifiers in the runners' own processes: no launch, and no
+   entry in the ``{"kernels"}`` line);
+17. prints ``{"device_programs": [...]}`` (the pairing's, the ladder's, the
    windowed program's, ``wave_commit_votes``' and the sharded MSM's times
    and bounds), ``{"kernels": [...]}`` (with each kernel's
    ``consensus_launches``, ``consensus_cert_launches``,
    ``windowed_launches``, ``n1024_launches``, ``sharded_launches``,
-   ``host_layer_launches`` per phase A-F and ``ladder_launches`` per run of
-   phase G; the tree's row carries its M = 32 reading under
-   ``at_m32``), the card line again, and as the last line
-   ``{"ok": true, "device": {...}}``.
+   ``host_layer_launches`` per phase A-F, ``ladder_launches`` per run of
+   phase G and ``networked_launches`` for I1 and I2; the tree's row
+   carries its M = 32 reading under ``at_m32``), the card line again, and
+   as the last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. Run it from the root of
 the repository: ``python3 chip_smoke.py`` (one card, no arguments).
@@ -215,9 +238,12 @@ PREP_REPEATS = 7  # host prep timings: median of this many, in turns
 STREAM_BUCKET = 512  # the streamed verify_rounds' chunk: 4,096 rows in 8 chunks
 
 CONS_N = 256  # the consensus phase's committee (BASELINE.json config #4)
-CONS_WAVES = 3  # every view decides at least this many waves
+# every view decides at least this many waves; cut from bench.py's 3 to fit
+# phase I in the time limit (depth only: every gate of phases 8, 9, 12 and
+# G2 stays)
+CONS_WAVES = 2
 CONS_MAX_RUNS = 40  # cap on Simulation.run calls before the phase fails
-CERT_BLOCKS = 14  # blocks a process submits in the certificate cell: 14 rounds, 3 waves
+CERT_BLOCKS = 10  # blocks a process submits in the certificate cell: 10 rounds, 2 waves
 
 N1024 = 1024  # BASELINE.json config #5: "1024-node full-wave MSM"
 N1024_ROUNDS = 4  # bench.py's verify1024 rung: 4 rounds of 1,024 signed vertices
@@ -246,8 +272,9 @@ BYZ_PLAN = (
     dict(adversary="withhold", min_waves=1, min_each=0),
     dict(adversary="invalid_edges", min_waves=1, min_each=0),
     # cut from the rung's 4 cycles to fit the time limit: each filtered wave
-    # pays host pairings for every share
-    dict(adversary="garbage_coin", cycles=2, min_waves=1, min_each=0),
+    # pays host pairings for every share (1 cycle decides 6 waves and
+    # filters 60 shares, 2 cycles 7 and 70)
+    dict(adversary="garbage_coin", cycles=1, min_waves=1, min_each=0),
 )
 SNAP_N = 64  # phase E's committee
 SNAP_SPAN = 4  # cert_span
@@ -259,6 +286,30 @@ LADDER_ROUNDS_PER_CALL = 2  # G1's flaky run: the 16 rounds in 8 ladder calls of
 LADDER_WINDOW = 2  # calls the card tier is down for in G1's flaky run
 LADDER_DOWN = 2  # run calls the card tier is down for in G2
 LADDER_PROBE_S = 0.05  # the ladder's probe interval
+I2_N = 16  # BASELINE.json config #2: 16 nodes, 4 waves, 1 tx a vertex
+I2_WAVES = 4  # every node decides at least this many waves
+I2_DEADLINE_S = 120.0  # the committee's time to I2_WAVES, or the phase fails
+# RBC at n = 16 makes 16 x (15 + 2 x 16 x 15) = 7,920 gRPC sends a round,
+# and one Python process serialises its sends and handlers under its
+# interpreter lock: the 16 nodes run in this many OS processes
+I2_WORKERS = 8
+I2_BLOCKS = 40  # one-transaction blocks each node submits: one a vertex past wave 4
+# quiescent pump ticks before a node asks its peers to re-serve a round
+# (anti-entropy sync). Config's 8 is tuned for the simulator's whole-cluster
+# step; a socket node's pump ticks every ~2 ms, so with blocks pending every
+# node asks at each cooldown while it waits for a round's quorum, and at
+# n = 16 the n^2 re-serves swamp the gRPC senders: on the H100 machine the
+# committee stalled in its first waves with most sends past their deadline,
+# at 8 ticks and at 500. 5,000 ticks is ~10 s of silence; the node config's
+# sync_patience key carries it (the cluster harness raises cert_patience for
+# the same reason).
+I2_SYNC_PATIENCE = 5000
+I3_N = 4  # scripts/cluster.py --n 4 --seconds 6 --rate 300 --kill auto
+I3_LOAD_S = 6.0
+I3_RATE = 300.0
+I3_SEED = 7  # scripts/cluster.py's --seed default
+I3_SETTLE_S = 1.5  # scripts/cluster.py's --settle default
+I3_BOOT_S = 60.0  # a runner's boot (its torch import) on a loaded host
 
 # Published H100 SXM peak memory rate (NVIDIA data sheet), used for the
 # byte side of each kernel's bound.
@@ -356,6 +407,11 @@ def main() -> int:
         return 2
     card = smi("name,power.limit")
     print(card)
+    garbage = next(kw["cycles"] for kw in BYZ_PLAN if kw.get("adversary") == "garbage_coin")
+    print(f"depth cuts to fit the time limit (every gate stays): consensus phases 8, 9, 12 "
+          f"and G2 to {CONS_WAVES} decided waves (bench.py's rung: 3), the certificate cell "
+          f"to {CERT_BLOCKS} blocks a process; the mempool chaos rung to {CHAOS_S:g} s of "
+          f"virtual load (its 1 s); garbage_coin to {garbage} cycle(s) (the rung's 4)")
     max_sm_mhz = float(smi("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     imad_per_s = INT32_LANES_PER_SM_CLOCK * sms * max_sm_mhz * 1e6
@@ -632,6 +688,7 @@ def main() -> int:
     ladder_launches["G2"] = ladder_consensus_phase(ref)
     host_layer = host_layer_phases()
     checkers_phase()
+    networked = networked_phases(ver, rounds, mask, seeds)
     for row in report:
         name = row["name"]
         row["consensus_launches"] = ref["launches"].get(name, 0)
@@ -641,6 +698,7 @@ def main() -> int:
         row["n1024_launches"] = n1024_launches.get(name, 0)
         row["host_layer_launches"] = {k: v.get(name, 0) for k, v in host_layer.items()}
         row["ladder_launches"] = {k: v.get(name, 0) for k, v in ladder_launches.items()}
+        row["networked_launches"] = {k: v.get(name, 0) for k, v in networked.items()}
 
     print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"device_programs": programs}))
@@ -3456,7 +3514,7 @@ def ladder_verify_phase(ver, rounds, mask) -> dict:
 
 
 def ladder_consensus_phase(ref) -> dict:
-    """Phase G2: phase 8's cluster (n = 256, card-MSM coins, 3 decided waves,
+    """Phase G2: phase 8's cluster (n = 256, card-MSM coins, ``CONS_WAVES`` decided waves,
     the same number of ``run`` calls) with ``ResilientVerifier([card tier
     over the phase's CUDAVerifier, CPUVerifier floor], retries=1)`` as its
     shared verifier (the simulator takes the ladder's synchronous
@@ -3554,6 +3612,483 @@ def checkers_phase() -> None:
     if proc.returncode != 0 or not lines or not lines[-1].startswith("clean"):
         fail(f"H: the checkers exited {proc.returncode}: {proc.stderr.strip()[-2000:]}")
     print(f"phase H wall: {time.perf_counter() - t0:.2f} s")
+
+
+# -- phase I: the networked deployment (sidecar, nodes over sockets, cluster)
+
+
+class SidecarBackend:
+    """The sidecar's backend: a card ``CUDAVerifier`` that records the bit
+    it answered for each distinct row (keyed by the row's encoding, the
+    signature included, so no row is checked on the host twice) and its
+    wall in ``verify_batch``. ``warmup`` is the card verifier's, so the
+    server warms the card up before its port opens."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.bits = {}
+        self.conflicts = 0
+        self.rows = 0
+        self.busy_s = 0.0
+
+    def warmup(self, bucket=None) -> float:
+        return self.inner.warmup(bucket)
+
+    def verify_batch(self, vertices):
+        from dag_rider_tpu_torch.core import codec
+
+        t = time.perf_counter()
+        out = self.inner.verify_batch(vertices)
+        self.busy_s += time.perf_counter() - t
+        self.rows += len(vertices)
+        for v, ok in zip(vertices, out):
+            if self.bits.setdefault(codec.encode_vertex(v), ok) != ok:
+                self.conflicts += 1
+        return out
+
+
+def sidecar_load_phase(server, backend, rounds, mask, ver) -> dict:
+    """I1: the verify phase's 16 rounds (n = 256, 64 corrupted rows) shipped
+    to the sidecar as whole-round batches by a ``RemoteVerifier``, with the
+    counters set to 0 just before and read just after: the masks equal the
+    phase's (the in-process ``CUDAVerifier``'s, checked against the host
+    oracle), one ``tree_sum_xyzt`` and one ``finish_check`` launch a
+    sidecar dispatch. Then the RPC wall against the in-process dispatch
+    wall, round by round, in turns; returns the launches."""
+    from dag_rider_tpu_torch.verifier import sidecar as sc
+
+    card = backend.inner
+    remote = sc.RemoteVerifier(server.address, timeout=60.0)
+    try:
+        d0 = card.total_dispatches
+        reset_launch_counters()
+        got = [remote.verify_batch(rnd) for rnd in rounds]
+        launches = read_launch_counters()
+        dispatches = card.total_dispatches - d0
+        if [bit for mk in got for bit in mk] != mask:
+            bad = [i for i, (a, b) in enumerate(zip((b for mk in got for b in mk), mask))
+                   if a != b]
+            fail(f"I1: the sidecar's masks differ from the phase's at rows {bad[:10]}")
+        want = want_launches(dispatches, [])
+        if dispatches != len(rounds) or launches != want or remote.rpc_failures:
+            fail(f"I1: {dispatches} sidecar dispatches for {len(rounds)} RPCs, "
+                 f"{remote.rpc_failures} RPC failures, launches {launches}, want {want}")
+        parts = {k: [] for k in ("rpc", "encode", "prep", "device", "local", "local_prep",
+                                 "local_device")}
+        for _ in range(3):
+            for rnd in rounds:
+                t = time.perf_counter()
+                sc._encode_batch(rnd)
+                parts["encode"].append(time.perf_counter() - t)
+                t = time.perf_counter()
+                remote.verify_batch(rnd)
+                parts["rpc"].append(time.perf_counter() - t)
+                parts["prep"].append(card.last_prepare_s)
+                parts["device"].append(card.last_dispatch_s)
+                t = time.perf_counter()
+                ver.verify_batch(rnd)
+                parts["local"].append(time.perf_counter() - t)
+                parts["local_prep"].append(ver.last_prepare_s)
+                parts["local_device"].append(ver.last_dispatch_s)
+    finally:
+        remote.close()
+    med = {k: statistics.median(v) * 1e3 for k, v in parts.items()}
+    rest = med["rpc"] - med["encode"] - med["prep"] - med["device"]
+    print(f"phase I1, the sidecar (gRPC, one server thread, warmed up in "
+          f"{server.warmup_compile_s * 1e3:.1f} ms before its port opened): {len(rounds)} "
+          f"whole-round batches of {len(rounds[0])} rows, masks equal to the in-process "
+          f"CUDAVerifier's "
+          f"and the host oracle's sample; {dispatches} dispatches, launches {launches}")
+    print(f"  per round (median of {len(parts['rpc'])}): RPC wall {med['rpc']:.2f} ms = encode "
+          f"{med['encode']:.2f} + host prep {med['prep']:.2f} + device {med['device']:.2f} + "
+          f"transport and decode {rest:.2f} ms; in-process dispatch {med['local']:.2f} ms "
+          f"(host prep {med['local_prep']:.2f} + device {med['local_device']:.2f} ms)")
+    return launches
+
+
+def sockets_worker(cfgs, conn, go, stop, waves, rounds) -> None:
+    """One OS process of I2: builds its ``Node``s (ports bound), warms the
+    card with one MSM, counts the ``ShardedMSM`` calls its coins make (and
+    their walls) and records each node's decided leaders; reports ready,
+    starts the nodes on ``go``, publishes each node's decided wave and
+    round in ``waves`` and ``rounds`` until ``stop``, stops the nodes and
+    sends back their logs, leaders, gauges, its launches and the MSM
+    plan."""
+    sys.path.insert(0, ROOT)
+    import hashlib
+
+    from dag_rider_tpu_torch import node as node_mod
+    from dag_rider_tpu_torch.core.types import Block
+    from dag_rider_tpu_torch.crypto import bls12381 as bls
+    from dag_rider_tpu_torch.parallel import msm as pmsm
+    from dag_rider_tpu_torch.utils.slog import EventLog
+    from dag_rider_tpu_torch.verifier.resilient import ResilientVerifier
+
+    pmsm.ShardedMSM()([1], [bls.G1_GEN])  # the CUDA context, the library, the tables
+    sizes, walls = [], []
+    call = pmsm.ShardedMSM.__call__
+
+    def counted(self, scalars, points):
+        sizes.append((len(points), self.n_shards))
+        t = time.perf_counter()
+        try:
+            return call(self, scalars, points)
+        finally:
+            walls.append(time.perf_counter() - t)
+
+    pmsm.ShardedMSM.__call__ = counted
+    leaders = {cfg["index"]: {} for cfg in cfgs}
+
+    def sink_of(i):
+        return lambda rec: leaders[i].__setitem__(rec["wave"], rec["leader"])
+
+    nodes = [node_mod.Node(cfg, log=EventLog(sink_of(cfg["index"]), clock=time.perf_counter,
+                                             names=frozenset({"wave_decided"})))
+             for cfg in cfgs]
+    for nd in nodes:
+        i = nd.process.index
+        for k in range(I2_BLOCKS):
+            nd.submit(Block((hashlib.sha256(f"i2|{i}|{k}".encode()).digest(),)))
+    reset_launch_counters()
+    conn.send("ready")
+    go.wait()
+
+    for nd in nodes:
+        nd.start()
+    while not stop.is_set():
+        for nd in nodes:
+            waves[nd.process.index] = nd.process.decided_wave
+            rounds[nd.process.index] = nd.process.round
+        stop.wait(0.05)
+    for nd in nodes:
+        nd.stop()
+    launches = read_launch_counters()
+    out = []
+    for nd in nodes:
+        p, ver = nd.process, nd.process.verifier
+        ladder = isinstance(ver, ResilientVerifier)
+        remote = ver.tiers[0] if ladder else ver
+        out.append({
+            "index": p.index, "decided": p.decided_wave, "round": p.round,
+            "log": [(v.id.round, v.id.source, v.digest().hex()) for v in nd.delivered],
+            "txs": [len(v.block.transactions) for v in nd.delivered],
+            "leaders": leaders[p.index],
+            "counters": {k: v for k, v in p.metrics.counters.items()
+                         if k.startswith(("net_", "sync_"))},
+            "ladder": (ver.retries_total, ver.fallbacks_total, ver.exhausted_total,
+                       ver.last_tier) if ladder else None,
+            "remote": (remote.rpc_failures, remote.retries_total),
+            "verify_s": p.metrics.verify_seconds_total,
+            "commit_s": list(p.metrics.wave_commit_seconds),
+        })
+    conn.send({"nodes": out, "launches": launches, "msms": sizes, "msm_s": sum(walls)})
+
+
+def sockets_phase(server, backend, seeds) -> dict:
+    """I2: ``BASELINE.json`` config #2's committee, n = 16, over real sockets:
+    16 ``Node``s, each on its own ``127.0.0.1`` port, Bracha RBC and frame
+    auth on, ``verifier: "remote"`` to I1's sidecar with ``verify_fallback:
+    "cpu"`` (the ladder), ``coin: "threshold_bls"`` with ``coin_msm:
+    "device"``, ``propose_empty``, one one-transaction block a vertex. The
+    Ed25519 identities are the first 16 of the verify phase's registry,
+    which the sidecar holds. The nodes run in ``I2_WORKERS`` OS processes
+    (one process is held to ~800 gRPC sends a second by its interpreter
+    lock, and RBC at n = 16 sends ~8,000 a round). Counters set to 0 just
+    before the start and read after every node stopped. Gates: every node
+    decides ``I2_WAVES`` waves within ``I2_DEADLINE_S``; the 16 logs pass
+    the audit's agreement and commit-uniqueness checks; each decided wave's
+    leader equals the host coin's (``ThresholdCoin(msm="host")``); every
+    distinct row the sidecar answered gets the same bit from one
+    ``CPUVerifier`` pass; no frame refused, no RPC failure, no ladder
+    retry, fallback or exhaustion; launches exactly the sidecar's
+    dispatches (comb kernels) and the nodes' ``ShardedMSM`` plans
+    (``padd381_xx``, ``horner381``). Returns the launches."""
+    import hashlib
+    import multiprocessing as mp
+    import shutil
+    import tempfile
+
+    from dag_rider_tpu_torch import node as node_mod
+    from dag_rider_tpu_torch.cluster.directory import allocate_addresses
+    from dag_rider_tpu_torch.consensus import invariants
+    from dag_rider_tpu_torch.consensus.coin import ThresholdCoin
+    from dag_rider_tpu_torch.core import codec
+    from dag_rider_tpu_torch.crypto import threshold as th
+    from dag_rider_tpu_torch.verifier.cpu import CPUVerifier
+
+    n = I2_N
+    card = backend.inner
+    root = tempfile.mkdtemp(prefix="dagrider-i2-")
+    keys_path = os.path.join(root, "keys.json")
+    blob = node_mod.generate_keys(n, n // 3 + 1, seed=f"chip-smoke-i2-{SEED}")
+    blob["ed25519_public"] = [pk.hex() for pk in card.registry.public_keys[:n]]
+    blob["ed25519_seeds"] = [s.hex() for s in seeds[:n]]
+    node_mod._dump_secret_file(keys_path, blob)
+    reg, _, coin_keys = node_mod.load_keys(blob)
+    addrs = allocate_addresses(root, n, "tcp")
+    cfgs = [{"index": i, "n": n, "listen": addrs[i], "keys": keys_path,
+             "peers": {str(j): addrs[j] for j in range(n) if j != i},
+             "rbc": True, "auth_master": hashlib.sha256(f"i2|{SEED}".encode()).hexdigest(),
+             "verifier": "remote", "verifier_address": server.address,
+             "verifier_timeout_s": 60.0, "verify_fallback": "cpu",
+             "coin": "threshold_bls", "coin_msm": "device", "propose_empty": True,
+             "sync_patience": I2_SYNC_PATIENCE}
+            for i in range(n)]
+    ctx = mp.get_context("spawn")
+    waves, rounds = ctx.Array("i", n), ctx.Array("i", n)
+    go, stop = ctx.Event(), ctx.Event()
+    procs, conns = [], []
+    t_boot = time.perf_counter()
+    try:
+        for w in range(I2_WORKERS):
+            parent, child = ctx.Pipe()
+            proc = ctx.Process(target=sockets_worker, daemon=True, args=(
+                [cfgs[i] for i in range(w, n, I2_WORKERS)], child, go, stop, waves, rounds))
+            proc.start()
+            procs.append(proc)
+            conns.append(parent)
+        for w, conn in enumerate(conns):
+            if not conn.poll(180.0) or conn.recv() != "ready":
+                fail(f"I2: worker {w} did not come up")
+        boot = time.perf_counter() - t_boot
+        d0, rows0, busy0 = card.total_dispatches, len(backend.bits), backend.busy_s
+        sent0, card_s0 = backend.rows, card.total_dispatch_s
+        reset_launch_counters()
+        t0 = last = time.perf_counter()
+        go.set()
+        while min(waves[:]) < I2_WAVES and time.perf_counter() - t0 <= I2_DEADLINE_S:
+            if time.perf_counter() - last >= 10.0:
+                last = time.perf_counter()
+                print(f"  I2 at {last - t0:.0f} s: rounds {min(rounds[:])}-{max(rounds[:])}, "
+                      f"decided waves {min(waves[:])}-{max(waves[:])}, "
+                      f"{card.total_dispatches - d0} sidecar dispatches", flush=True)
+            time.sleep(0.05)
+        wall = time.perf_counter() - t0
+        stop.set()
+        results = []
+        for w, conn in enumerate(conns):
+            if not conn.poll(120.0):
+                fail(f"I2: worker {w} sent no result")
+            results.append(conn.recv())
+        launches = read_launch_counters()
+        dispatches = card.total_dispatches - d0
+    finally:
+        stop.set()
+        go.set()
+        for proc in procs:
+            proc.join(timeout=30.0)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        shutil.rmtree(root, ignore_errors=True)
+    nodes = sorted((nd for r in results for nd in r["nodes"]), key=lambda nd: nd["index"])
+
+    if [nd["index"] for nd in nodes] != list(range(n)) or min(
+            nd["decided"] for nd in nodes) < I2_WAVES:
+        fail(f"I2: decided waves {[nd['decided'] for nd in nodes]} after {wall:.0f} s, want "
+             f"{I2_WAVES} at all {n}; rounds {[nd['round'] for nd in nodes]}; "
+             f"{dispatches} sidecar dispatches; node 0: {nodes[0]['counters']}, ladder "
+             f"{nodes[0]['ladder']}, RPC (failures, retries) {nodes[0]['remote']}")
+    logs = {nd["index"]: [(r, s, bytes.fromhex(d)) for r, s, d in nd["log"]] for nd in nodes}
+    try:
+        invariants.check_agreement(logs)
+        invariants.check_commit_uniqueness(logs)
+    except invariants.InvariantViolation as exc:
+        fail(f"I2: the delivery logs disagree: {exc}")
+    host = ThresholdCoin(coin_keys, 0, n, msm="host")
+    decided = sorted({w for nd in nodes for w in nd["leaders"]})
+    for w in decided:
+        for j in range(coin_keys.threshold):
+            host.observe_share(w, j, th.sign_share(coin_keys.share_sks[j], w))
+        if not host.ready(w):
+            fail(f"I2: the host coin is not ready for wave {w}")
+        bad = [nd["index"] for nd in nodes if nd["leaders"].get(w, host.choose_leader(w))
+               != host.choose_leader(w)]
+        if bad:
+            fail(f"I2: wave {w}'s leader at nodes {bad} differs from the host coin's "
+                 f"{host.choose_leader(w)}")
+    rows = list(backend.bits)[rows0:]
+    answered = [backend.bits[k] for k in rows]
+    oracle = CPUVerifier(reg).verify_batch([codec.decode_vertex(k)[0] for k in rows])
+    if not rows or oracle != answered or backend.conflicts:
+        fail(f"I2: {len(rows)} rows answered by the sidecar, "
+             f"{sum(a != b for a, b in zip(oracle, answered))} differ from the host oracle, "
+             f"{backend.conflicts} answered twice with different bits")
+    gauges = {nd["index"]: (nd["counters"].get("net_auth_rejects", 0), nd["ladder"],
+                            nd["remote"]) for nd in nodes}
+    if any(g != (0, (0, 0, 0, 0), (0, 0)) for g in gauges.values()):
+        fail(f"I2: auth rejects, ladder (retries, fallbacks, exhausted, last tier) and RPC "
+             f"(failures, retries) {gauges}; want none")
+    msms = [sz for r in results for sz in r["msms"]]
+    worker = {}
+    for r in results:
+        add_launches(worker, r["launches"])
+    total = dict(launches)
+    add_launches(total, worker)
+    want = want_launches(dispatches, [])
+    want["padd381_xx"] = sum(sharded_msm_adds(pts, k) for pts, k in msms)
+    want["horner381"] = len(msms)
+    if launches["padd381_xx"] or launches["horner381"] or any(
+            worker[k] for k in ("tree_sum_xyzt", "finish_check", "padd_xx")):
+        fail(f"I2: launches in the sidecar's process {launches}, in the nodes' {worker}")
+    if dispatches <= 0 or not msms or total != want:
+        fail(f"I2: launches {total}, want {want} ({dispatches} sidecar dispatches, "
+             f"{len(msms)} coin MSMs)")
+
+    delivered = min(len(nd["log"]) for nd in nodes)
+    committed_tx = sum(nodes[0]["txs"][:delivered])
+    commit = [x for nd in nodes for x in nd["commit_s"]]
+    card_s = card.total_dispatch_s - card_s0
+    msm_s = sum(r["msm_s"] for r in results)
+    busy = (f"at most {(card_s + msm_s) / wall:.3%} of the wall, bounded by host walls around "
+            f"its work (the CUDA profiler is not run across these processes): the sidecar's "
+            f"dispatches {card_s:.3f} s from enqueue to mask, the {len(msms)} coin MSMs "
+            f"{msm_s:.3f} s from call to return")
+    print(f"phase I2, config #2 over sockets (n {n}, {I2_WORKERS} processes of "
+          f"{n // I2_WORKERS} nodes, RBC, frame auth, remote verifier with the CPU floor, "
+          f"card-MSM threshold coins): {I2_WAVES} waves at every node in {wall:.2f} s "
+          f"(boot {boot:.2f} s); decided waves {min(nd['decided'] for nd in nodes)}-"
+          f"{max(nd['decided'] for nd in nodes)}, rounds "
+          f"{min(nd['round'] for nd in nodes)}-{max(nd['round'] for nd in nodes)}")
+    print(f"  {delivered} vertices delivered by every node, logs agreeing; {committed_tx} "
+          f"transactions in the common prefix = {committed_tx / wall:.1f} committed tx/s; "
+          f"wave commit p50 "
+          f"{statistics.median(commit) * 1e3 if commit else float('nan'):.3f} ms "
+          f"({len(commit)} samples); leaders of waves {decided[0]}-{decided[-1]} equal to the "
+          f"host coin's; {len(rows)} distinct rows answered, each equal to the host oracle's "
+          f"bit ({sum(answered)} accepted)")
+    print(f"  sidecar: {dispatches} dispatches, {(backend.rows - sent0) / dispatches:.1f} rows "
+          f"a dispatch, {backend.busy_s - busy0:.2f} s in its backend; the nodes' verify seam "
+          f"(the RPC wall) {sum(nd['verify_s'] for nd in nodes):.2f} s summed over {n} nodes; "
+          f"{len(msms)} coin MSMs of {sorted({p for p, _ in msms})} points; net sends "
+          f"{sum(nd['counters'].get('net_sends', 0) for nd in nodes)}, auth rejects 0, ladder "
+          f"retries and fallbacks 0; launches {total}; the card busy {busy}")
+    return total
+
+
+def fail_closed_check(server, rounds) -> None:
+    """I1's last gate, after I2: with the server stopped, a ``RemoteVerifier``
+    reads every row as rejected and counts the failure; one built with
+    ``raise_on_unavailable`` raises ``VerifierUnavailableError``."""
+    from dag_rider_tpu_torch.verifier import sidecar as sc
+    from dag_rider_tpu_torch.verifier.base import VerifierUnavailableError
+
+    addr = server.address
+    server.stop()
+    remote = sc.RemoteVerifier(addr, timeout=2.0)
+    strict = sc.RemoteVerifier(addr, timeout=2.0, raise_on_unavailable=True)
+    try:
+        got = remote.verify_batch(rounds[0][:8])
+        if got != [False] * 8 or remote.rpc_failures != 1:
+            fail(f"I1: a stopped sidecar answered {got} ({remote.rpc_failures} RPC failures)")
+        try:
+            strict.verify_batch(rounds[0][:1])
+        except VerifierUnavailableError:
+            pass
+        else:
+            fail("I1: a stopped sidecar did not raise VerifierUnavailableError")
+    finally:
+        remote.close()
+        strict.close()
+    print("  I1 with the server stopped: the RemoteVerifier failed closed (8 rows rejected, "
+          "1 RPC failure; raise_on_unavailable raised)")
+
+
+def cluster_phase() -> None:
+    """I3: the port's cluster harness as ``scripts/cluster.py --n 4 --seconds 6
+    --rate 300 --kill auto`` runs the reference's (``run_cluster``): 4 OS
+    processes of ``python -m dag_rider_tpu_torch.cluster.runner`` over UDS
+    (``verifier: "cpu"``, as ``build_cluster`` writes them), ``drive_load``
+    at 300 tx/s for 6 s, one seeded kill -9 and the rejoin from checkpoint,
+    then ``audit_cluster``: agreement, no lost or duplicated transaction,
+    liveness, no flight-recorder dump. The runners are processes of their
+    own with CPU verifiers: the phase's output is its audit, not a launch
+    count."""
+    import shutil
+    import tempfile
+    import threading
+
+    from dag_rider_tpu_torch.cluster import audit as caudit, client
+    from dag_rider_tpu_torch.cluster.directory import build_cluster
+    from dag_rider_tpu_torch.cluster.supervisor import ClusterSupervisor, seeded_kill_plan
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="dagrider-i3-")
+    if len(os.path.join(root, "sock", "node0.sock")) > 100:
+        fail(f"I3: the workspace {root} is too deep for a UDS path")
+    spec = build_cluster(root, I3_N, transport="uds", seed=I3_SEED)
+    # the runners import this checkout's package, wherever they start
+    path = os.pathsep.join(p for p in (ROOT, os.environ.get("PYTHONPATH")) if p)
+    sup = ClusterSupervisor(spec, env={"PYTHONPATH": path})
+    load = {}
+    try:
+        sup.start_all()
+        not_ready = sup.wait_ready(I3_BOOT_S)
+        if not_ready:
+            fail(f"I3: runners {not_ready} did not boot in {I3_BOOT_S:.0f} s")
+        boot = time.perf_counter() - t_phase
+        loader = threading.Thread(target=lambda: load.update(client.drive_load(
+            spec, duration_s=I3_LOAD_S, rate=I3_RATE, seed=I3_SEED)), daemon=True)
+        loader.start()
+        executed = sup.run_plan(seeded_kill_plan(I3_SEED, I3_N, kill_at_s=2.0,
+                                                 restart_after_s=1.5))
+        loader.join(timeout=I3_LOAD_S + 30.0)
+        if any(ev["action"] == "restart" for ev in executed):
+            sup.wait_ready(I3_BOOT_S)
+        time.sleep(I3_SETTLE_S)
+    finally:
+        forced = sup.stop_all()
+    report = caudit.audit_cluster(spec, restarted=sup.restart_counts.keys())
+    shutil.rmtree(root, ignore_errors=True)
+    if not report["ok"] or report["lost_tx"] or report["duplicate_tx"] or report[
+            "flight_dump_files"] or not report["decided_waves"]:
+        fail(f"I3: audit {json.dumps(report, default=repr)[:3000]}")
+    if len(executed) != 2 or dict(sup.kill_counts) == {} or not load.get("accepted"):
+        fail(f"I3: fault plan {executed}, kills {sup.kill_counts}, load {load}")
+    if forced:
+        fail(f"I3: runners SIGKILLed at stop {forced}")
+    victim = executed[0]["node"]
+    print(f"phase I3, the cluster harness (n {I3_N} OS processes over UDS, {I3_RATE:.0f} tx/s "
+          f"for {I3_LOAD_S:.0f} s, kill -9 of node {victim} at "
+          f"{executed[0]['t']:.1f} s, restart at {executed[1]['t']:.1f} s): boot "
+          f"{boot:.2f} s; {load['accepted']} accepted of {load.get('offered')}, "
+          f"{report['delivered_tx']} delivered, 0 lost, 0 duplicated, in flight "
+          f"{report['in_flight_tx']}; submit->deliver p50 {report['submit_deliver_p50_ms']} "
+          f"ms; decided waves {report['decided_waves']}; rejoined {report.get('rejoined')}; "
+          f"log lengths {report['log_lengths']}; agreement held, no flight dump; phase wall "
+          f"{time.perf_counter() - t_phase:.2f} s")
+
+
+def networked_phases(ver, rounds, mask, seeds) -> dict:
+    """Phase I (I1-I3, with the sidecar's fail-closed gate after I2);
+    returns the launches of I1 and I2 (I3 launches in its runners'
+    processes, none of them on the card)."""
+    from dag_rider_tpu_torch.verifier import sidecar as sc
+    from dag_rider_tpu_torch.verifier.cuda import CUDAVerifier
+
+    t_phase = time.perf_counter()
+    card = CUDAVerifier(ver.registry)  # on the card: the sidecar has no other
+    card._tables = ver._tables  # the verify phase's n = 256 comb tables, already built
+    backend = SidecarBackend(card)
+    server = sc.VerifierSidecarServer(backend, "127.0.0.1:0")
+    if server.warmup_compile_s <= 0 or not card._warm:
+        fail("I1: the sidecar's card verifier was not warmed up before its port opened")
+    out = {}
+    try:
+        t = time.perf_counter()
+        out["I1"] = sidecar_load_phase(server, backend, rounds, mask, ver)
+        print(f"phase I1 wall: {time.perf_counter() - t:.2f} s")
+        t = time.perf_counter()
+        out["I2"] = sockets_phase(server, backend, seeds)
+        print(f"phase I2 wall: {time.perf_counter() - t:.2f} s")
+    finally:
+        fail_closed_check(server, rounds)
+    t = time.perf_counter()
+    cluster_phase()
+    print(f"phase I3 wall: {time.perf_counter() - t:.2f} s")
+    print(f"phase I wall: {time.perf_counter() - t_phase:.2f} s")
+    return out
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -361,3 +361,17 @@ class Mempool:
                     self._note_inflight(tx, t)
                     restored += 1
             return restored
+
+    def drop_committed(self, committed) -> int:
+        """Take out of the pool every pending transaction that
+        ``committed`` (a set of payloads) holds, with its latency stamp;
+        returns how many left. A node restored from a checkpoint can hold
+        one that its previous incarnation proposed and the cluster
+        committed; if it then jumps past that commit by state transfer it
+        never delivers it itself, and would batch it a second time."""
+        with self._lock:
+            gone = [e.tx for e in self.pool.pending() if e.tx in committed]
+            for tx in gone:
+                self.pool._remove(tx)
+                self._inflight.pop(tx, None)
+            return len(gone)

@@ -48,5 +48,5 @@ def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty((F.LIMBS, n), dtype=torch.int32, device=a.device)
     cuda_group.launch("dr_field_mul", a.device, at.data_ptr(), bt.data_ptr(),
                       out.data_ptr(), n)
-    LAUNCHES["field_mul"] += 1
+    cuda_group.count(LAUNCHES, "field_mul")
     return out.t().reshape(a.shape)

@@ -24,6 +24,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 
 import torch
 
@@ -51,6 +52,17 @@ _SIGNATURES = {
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+_launch_lock = threading.Lock()
+
+
+def count(launches: dict, name: str) -> None:
+    """Book one launch of ``name`` in a wrapper module's ``launches``, under
+    one lock for all of them: the nodes of one process launch from their
+    own pump threads."""
+    with _launch_lock:
+        launches[name] += 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -115,7 +127,7 @@ def padd_xx(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     out = torch.empty((ROWS, n), dtype=torch.int32, device=p.device)
     launch("dr_padd_xx", p.device, p.data_ptr(), p.stride(0), q.data_ptr(),
            q.stride(0), out.data_ptr(), out.stride(0), n)
-    LAUNCHES["padd_xx"] += 1
+    count(LAUNCHES, "padd_xx")
     return out
 
 
@@ -142,7 +154,7 @@ def tree_sum_xyzt(entries: torch.Tensor) -> torch.Tensor:
     groups = math.prod(lead)
     out = torch.empty((*lead, 4, L), dtype=torch.int32, device=x.device)
     launch("dr_tree_sum_xyzt", x.device, x.data_ptr(), out.data_ptr(), groups, m)
-    LAUNCHES["tree_sum_xyzt"] += 1
+    count(LAUNCHES, "tree_sum_xyzt")
     return out
 
 
@@ -189,7 +201,7 @@ def finish_check(
     out = torch.empty(b, dtype=torch.int32, device=r_y.device)
     launch("dr_finish_check", r_y.device, r_y.data_ptr(), r_sign.data_ptr(),
            acc.data_ptr(), out.data_ptr(), b)
-    LAUNCHES["finish_check"] += 1
+    count(LAUNCHES, "finish_check")
     return out.bool()
 
 
@@ -215,5 +227,5 @@ def pow22523(z: torch.Tensor) -> torch.Tensor:
     n = z.shape[1]
     out = torch.empty((L, n), dtype=torch.int32, device=z.device)
     launch("dr_pow22523", z.device, z.data_ptr(), out.data_ptr(), n)
-    LAUNCHES["pow22523"] += 1
+    count(LAUNCHES, "pow22523")
     return out

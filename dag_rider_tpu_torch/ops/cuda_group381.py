@@ -113,7 +113,7 @@ def padd381_xx(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     out = torch.empty((ROWS, n), dtype=torch.int32, device=p.device)
     cuda_group.launch("dr_padd381_xx", p.device, p.data_ptr(), p.stride(0), q.data_ptr(),
                       q.stride(0), out.data_ptr(), out.stride(0), n, handle=lib())
-    LAUNCHES["padd381_xx"] += 1
+    cuda_group.count(LAUNCHES, "padd381_xx")
     return out
 
 
@@ -174,5 +174,5 @@ def horner381(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     canon = torch.empty((COORDS, L), dtype=torch.int32, device=w.device)
     cuda_group.launch("dr_horner381", w.device, w.data_ptr(), w.stride(0), raw.data_ptr(),
                       canon.data_ptr(), handle=lib())
-    LAUNCHES["horner381"] += 1
+    cuda_group.count(LAUNCHES, "horner381")
     return raw, canon

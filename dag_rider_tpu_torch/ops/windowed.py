@@ -99,7 +99,7 @@ class _StepGraph:
         for i in range(operands.shape[0]):
             self.operand.copy_(operands[i])
             self.graph.replay()
-            CG.LAUNCHES["padd_xx"] += 1  # the replayed step's one padd_xx launch
+            CG.count(CG.LAUNCHES, "padd_xx")  # the replayed step's one padd_xx launch
         return self.acc.clone()
 
 

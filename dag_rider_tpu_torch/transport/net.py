@@ -1,0 +1,836 @@
+"""gRPC networked Transport — the multi-host deployment backend.
+
+The reference's broker only works inside one OS process (Go channels,
+``process/transport.go``); SURVEY.md §2c calls for "(a) process-to-process
+consensus traffic stays host-side (gRPC), preserving Transport as an
+interface with in-memory (test) and networked implementations". This is
+that networked implementation.
+
+No generated protobuf stubs: the wire payload is the framework's own
+canonical codec (core/codec.py) carried through gRPC's generic byte-level
+method handlers — one unary method ``/dagrider.Transport/Deliver``. That
+keeps the build dependency-free (no grpc_tools in the image) while staying
+a real gRPC service (HTTP/2, deadlines, auth hooks all available).
+
+Delivery model matches InMemoryTransport: incoming RPCs land in an inbox;
+the owner thread pumps them into the Process. The consensus state machine
+stays single-threaded (SURVEY.md D4's fix) — only the inbox is shared.
+"""
+
+from __future__ import annotations
+
+import math
+import random
+import struct
+import threading
+import time
+from collections import deque
+from typing import Callable, Deque, Dict, Optional, Tuple
+
+import grpc
+
+from dag_rider_tpu_torch.core import codec
+from dag_rider_tpu_torch.core.types import BroadcastMessage
+from dag_rider_tpu_torch.transport.base import Handler, Transport
+from dag_rider_tpu_torch.utils.metrics import Metrics
+
+_SERVICE = "dagrider.Transport"
+_METHOD = f"/{_SERVICE}/Deliver"
+_SNAPSHOT_METHOD = f"/{_SERVICE}/Snapshot"
+_SUBMIT_METHOD = f"/{_SERVICE}/Submit"
+
+_identity = lambda b: b  # noqa: E731 — bytes in, bytes out
+
+
+_SNAP_DOMAIN = b"dagrider-snapshot-req-v2"  # v2: timestamped request body
+
+
+class WanFault:
+    """Seeded WAN delay/drop policy applied at the gRPC send seam.
+
+    Called once per network attempt with the destination peer; returns a
+    verdict: negative = drop this attempt (the bytes never leave the
+    host), positive = hold the attempt for that many seconds before it
+    goes out, zero = send immediately. Seeded so a cluster scenario's
+    fault schedule replays; ``delay_ms`` is a (low, high) uniform window
+    and ``rate`` the fraction of attempts delayed at all.
+    """
+
+    def __init__(
+        self,
+        seed: int = 0,
+        *,
+        delay_ms: Tuple[float, float] = (0.0, 0.0),
+        delay_rate: float = 1.0,
+        drop: float = 0.0,
+    ) -> None:
+        lo, hi = float(delay_ms[0]), float(delay_ms[1])
+        if lo < 0 or hi < lo:
+            raise ValueError(f"delay_ms needs 0 <= low <= high, got {delay_ms}")
+        if not 0.0 <= drop <= 1.0:
+            raise ValueError(f"drop must be in [0, 1], got {drop}")
+        if not 0.0 <= delay_rate <= 1.0:
+            raise ValueError(f"delay_rate must be in [0, 1], got {delay_rate}")
+        self._rng = random.Random(seed)
+        self._delay = (lo, hi)
+        self._delay_rate = delay_rate
+        self._drop = drop
+        self._lock = threading.Lock()
+
+    def __call__(self, peer: int) -> float:
+        # _send runs on the owner thread AND retry-timer threads; the
+        # generator state must not interleave or the seeded schedule
+        # stops being a schedule.
+        with self._lock:
+            if self._drop and self._rng.random() < self._drop:
+                return -1.0
+            lo, hi = self._delay
+            if hi > 0 and (
+                self._delay_rate >= 1.0
+                or self._rng.random() < self._delay_rate
+            ):
+                return self._rng.uniform(lo, hi) / 1e3
+        return 0.0
+
+
+class _DeliverHandler(grpc.GenericRpcHandler):
+    def __init__(
+        self,
+        sink: Callable[[bytes], None],
+        snapshot_provider: Optional[Callable[[], bytes]] = None,
+        auth=None,
+        snapshot_min_interval_s: float = 1.0,
+        snapshot_freshness_s: Optional[float] = 300.0,
+        metrics_inc: Optional[Callable[[str], None]] = None,
+        wall_clock: Callable[[], float] = time.time,
+        submit_sink: Optional[Callable[[], Optional[Callable]]] = None,
+    ):
+        self._sink = sink
+        self._snapshot = snapshot_provider
+        self._auth = auth
+        # late-bound client front door (cluster runner): a zero-arg
+        # getter so the owner can wire the sink after construction
+        self._submit_sink = submit_sink if submit_sink is not None else (
+            lambda: None
+        )
+        self._inc = metrics_inc if metrics_inc is not None else lambda _n: None
+        # Injectable wall clock (tests/virtual time): freshness is a
+        # cross-host comparison, so it NEEDS wall time in production —
+        # but the default must be overridable or the freshness window is
+        # untestable without real sleeps.
+        self._wall = wall_clock
+        # <= 0 normalizes to the unthrottled / uncheck-everything intent
+        # (and keeps the token-bucket divisor positive): interval 0 means
+        # "no per-relayer throttle", freshness 0 means "no freshness
+        # check" — NOT "refuse everything", which a literal 0 window
+        # would do (every real ts is >0 seconds old on arrival).
+        if snapshot_min_interval_s <= 0.0:
+            snapshot_min_interval_s = 1e-9
+        if snapshot_freshness_s is not None and snapshot_freshness_s <= 0.0:
+            snapshot_freshness_s = None
+        self._snap_lock = threading.Lock()
+        # Authenticated requesters are throttled PER RELAYER: one
+        # Byzantine committee member hammering Snapshot must not starve
+        # an honest laggard whose state-transfer fetch is its only
+        # recovery path once f+1 peers have pruned past it. The table is
+        # naturally bounded at n entries — only relayers whose MAC
+        # verifies (known pair keys) ever land in it. Unauthenticated
+        # deployments fall back to a stricter GLOBAL cap (no identity to
+        # key the table on).
+        self._snap_last_by: Dict[int, float] = {}
+        #: relayer -> highest timestamp accepted. Requests must carry a
+        #: STRICTLY increasing ts per relayer: a captured request's ts
+        #: was already consumed, so replays are refused WITHOUT charging
+        #: the victim's throttle slot — an on-path replay stream cannot
+        #: starve the honest requester out of its own budget.
+        self._snap_ts_by: Dict[int, float] = {}
+        self._snap_last_global = float("-inf")
+        self._snap_min_interval = snapshot_min_interval_s
+        # Freshness window is generous (5 min default, operator-tunable,
+        # None disables): its job is bounding the replay/state horizon,
+        # not tight clock agreement — a recovering node with pre-NTP
+        # clock drift is exactly the node that needs the RPC. Skew
+        # refusals are counted distinctly (net_snapshot_stale_refusals,
+        # incremented only for MAC-valid requests) so a wedged-by-skew
+        # committee member is diagnosable on the donor.
+        self._snap_freshness = snapshot_freshness_s
+        # Serialized-window cache: bounds donor-side SERIALIZATION work
+        # at one provider call per TTL no matter how many authenticated
+        # relayers ask (built under the lock — concurrent misses at TTL
+        # expiry wait instead of each re-serializing).
+        self._snap_cache: Optional[bytes] = None
+        self._snap_cache_t = float("-inf")
+        # Global egress token bucket: per-relayer fairness alone lets f
+        # Byzantine members each pull a full-window blob per interval
+        # (~f blobs/s of response bandwidth from 44-byte requests). The
+        # bucket bounds sustained egress at ~1 blob/interval (burst 3).
+        # Starvation under the bucket is probabilistic, not permanent:
+        # an honest laggard retrying each interval competes with at
+        # most f in-interval requesters for the refill, so expected
+        # recovery is O(f) attempts, vs the unbounded wedge a hard
+        # per-requester denial would be.
+        self._snap_tokens = 3.0
+        self._snap_tok_t = time.monotonic()
+
+    def service(self, handler_call_details):
+        if handler_call_details.method == _METHOD:
+
+            def unary(request: bytes, context) -> bytes:
+                self._sink(request)
+                return b"\x01"
+
+            return grpc.unary_unary_rpc_method_handler(
+                unary,
+                request_deserializer=_identity,
+                response_serializer=_identity,
+            )
+        if handler_call_details.method == _SUBMIT_METHOD:
+            # Client mempool front door (cluster mode): clients are not
+            # committee members, so this endpoint is not MAC-gated — the
+            # sink behind it is the node's own admission control, whose
+            # whole job is surviving untrusted load (throttle/shed).
+            sink = self._submit_sink()
+            if sink is None:
+                return None
+
+            def submit(request: bytes, context) -> bytes:
+                self._inc("net_client_submits")
+                try:
+                    return sink(request)
+                except Exception:  # noqa: BLE001 — a malformed client
+                    # frame must not crash the server thread; empty =
+                    # refusal, the client treats it as not-accepted.
+                    return b""
+
+            return grpc.unary_unary_rpc_method_handler(
+                submit,
+                request_deserializer=_identity,
+                response_serializer=_identity,
+            )
+        if (
+            handler_call_details.method == _SNAPSHOT_METHOD
+            and self._snapshot is not None
+        ):
+            # Peer state transfer: serve the live DAG window. The payload
+            # is self-certifying (signed vertices) — see
+            # utils.checkpoint.restore_from_snapshot's trust model — so
+            # INTEGRITY needs nothing here; AVAILABILITY does: each
+            # response serializes the whole window, so requests are
+            # MAC-gated with a freshness window (when frame auth is
+            # configured) and rate-limited per authenticated relayer —
+            # a 0-byte request must not be a cheap CPU/bandwidth
+            # amplifier, and on plaintext gRPC a captured request must
+            # expire rather than burn the donor's budget forever. Empty
+            # response = refusal; the honest recovery path just retries
+            # after a pump cycle.
+            def snap(request: bytes, context) -> bytes:
+                now = time.monotonic()
+                if self._auth is not None:
+                    from dag_rider_tpu_torch.transport.auth import TAG_BYTES
+
+                    if len(request) != 4 + 8 + TAG_BYTES:
+                        self._inc("net_snapshot_rejects")
+                        return b""
+                    (relayer,) = struct.unpack_from("<I", request)
+                    (ts,) = struct.unpack_from("<d", request, 4)
+                    if not math.isfinite(ts):
+                        # NaN compares False with everything: it would
+                        # sail through the freshness AND replay gates,
+                        # then poison _snap_ts_by for that relayer.
+                        self._inc("net_snapshot_rejects")
+                        return b""
+                    # MAC first: the freshness/replay/throttle counters
+                    # below must describe authenticated committee
+                    # members, not unauthenticated noise, or the
+                    # skew-diagnosis signal is meaningless.
+                    if not self._auth.check(
+                        relayer,
+                        _SNAP_DOMAIN + request[4:12],
+                        request[12:],
+                    ):
+                        self._inc("net_snapshot_rejects")
+                        return b""
+                    if (
+                        self._snap_freshness is not None
+                        and abs(self._wall() - ts) > self._snap_freshness
+                    ):
+                        self._inc("net_snapshot_stale_refusals")
+                        return b""
+                    with self._snap_lock:
+                        prev_ts = self._snap_ts_by.get(
+                            relayer, float("-inf")
+                        )
+                        if ts == prev_ts:
+                            # Exact capture replay: refuse without
+                            # touching the relayer's throttle state, so
+                            # a replay stream can never starve the
+                            # victim out of its own budget.
+                            self._inc("net_snapshot_replays")
+                            return b""
+                        if ts < prev_ts:
+                            # Older-than-accepted: a reordered capture
+                            # OR the requester's clock stepped backward
+                            # (e.g. first NTP sync mid-recovery) —
+                            # indistinguishable here, so count it as
+                            # staleness, not attack. The requester side
+                            # keeps its ts monotone within a process
+                            # (fetch_snapshot), so honest lockout is
+                            # bounded to a restart-plus-backward-step,
+                            # itself capped by the freshness window.
+                            self._inc("net_snapshot_stale_refusals")
+                            return b""
+                        last = self._snap_last_by.get(relayer, float("-inf"))
+                        if now - last < self._snap_min_interval:
+                            self._inc("net_snapshot_throttled")
+                            return b""
+                        # refill, then check one global egress token
+                        gap = now - self._snap_tok_t
+                        self._snap_tokens = min(
+                            3.0,
+                            self._snap_tokens
+                            + gap / self._snap_min_interval,
+                        )
+                        self._snap_tok_t = now
+                        if self._snap_tokens < 1.0:
+                            self._inc("net_snapshot_global_throttled")
+                            return b""
+                        # All gates passed: serve, then commit throttle
+                        # state only on SUCCESS — a failing provider
+                        # must not burn the requester's token/slot/ts
+                        # on an empty response.
+                        blob = self._serve_cached()
+                        if blob:
+                            self._snap_tokens -= 1.0
+                            self._snap_last_by[relayer] = now
+                            self._snap_ts_by[relayer] = ts
+                        return blob
+                # No identity to throttle on: stricter global cap.
+                with self._snap_lock:
+                    gap = now - self._snap_last_global
+                    if gap < 2.0 * self._snap_min_interval:
+                        self._inc("net_snapshot_throttled")
+                        return b""
+                    blob = self._serve_cached()
+                    if blob:
+                        self._snap_last_global = now
+                    return blob
+
+            return grpc.unary_unary_rpc_method_handler(
+                snap,
+                request_deserializer=_identity,
+                response_serializer=_identity,
+            )
+        return None
+
+    def _serve_cached(self) -> bytes:
+        """Serve the window blob, serialized at most once per TTL.
+
+        Caller holds ``_snap_lock`` — concurrent misses at TTL expiry
+        wait here instead of each re-serializing (the donor-side cost a
+        request flood could otherwise amplify). Returns b"" (refusal)
+        if the provider fails; the expired cache is released before the
+        rebuild so a multi-MB stale blob isn't pinned across a failing
+        provider."""
+        now = time.monotonic()
+        if (
+            self._snap_cache is not None
+            and now - self._snap_cache_t < self._snap_min_interval
+        ):
+            return self._snap_cache
+        self._snap_cache = None
+        try:
+            blob = self._snapshot()
+        except Exception:  # noqa: BLE001 — a failing provider must not
+            # crash the server thread; empty = refuse. Negative-cache
+            # the failure for one TTL: without it, every request during
+            # a provider outage would invoke the (possibly expensive,
+            # possibly repeatedly-failing) serialization at line rate —
+            # unthrottled, since refusals deliberately charge no
+            # throttle state.
+            blob = b""
+        self._snap_cache = blob
+        self._snap_cache_t = time.monotonic()
+        return blob
+
+
+class GrpcTransport(Transport):
+    """One endpoint per process.
+
+    Unlike the in-memory broker (one shared object), each process owns a
+    GrpcTransport bound to its listen address with a peer table of the
+    other processes' addresses — the deployment shape of a real committee.
+    """
+
+    def __init__(
+        self,
+        index: int,
+        listen_addr: str,
+        peers: Dict[int, str],
+        *,
+        max_workers: int = 4,
+        retries: int = 2,
+        retry_backoff_s: float = 0.05,
+        rpc_timeout_s: float = 5.0,
+        metrics: Optional[Metrics] = None,
+        auth=None,
+        snapshot_provider: Optional[Callable[[], bytes]] = None,
+        snapshot_min_interval_s: float = 1.0,
+        snapshot_freshness_s: Optional[float] = 300.0,
+        wall_clock: Callable[[], float] = time.time,
+        send_fault: Optional[Callable[[int], float]] = None,
+        log=None,
+    ):
+        from dag_rider_tpu_torch.utils.slog import NOOP
+
+        #: obs seam (round 16): peer up/down transitions emit typed
+        #: events alongside the net_peer_* counters
+        self.log = log if log is not None else NOOP
+        self.index = index
+        #: injectable wall clock for snapshot-request timestamps (the
+        #: donor-side freshness gate compares against the same clock)
+        self._wall = wall_clock
+        self._peers = dict(peers)
+        #: Optional FrameAuth (transport/auth.py): every outgoing frame
+        #: carries a per-peer MAC and every incoming frame must carry a
+        #: valid MAC for its *claimed* sender — the authenticated
+        #: point-to-point links Bracha's quorum math assumes (round-3
+        #: VERDICT missing #5: without this, any peer could forge other
+        #: processes' ECHO/READY votes on the open Deliver endpoint).
+        self._auth = auth
+        self._handler: Optional[Handler] = None
+        self._lock = threading.Lock()
+        self._inbox: Deque[BroadcastMessage] = deque()
+        self._channels: Dict[int, grpc.Channel] = {}
+        self._stubs: Dict[int, Callable] = {}
+        self._inflight: Dict[int, object] = {}
+        self._inflight_seq = 0
+        self._retries = retries
+        self._retry_backoff_s = retry_backoff_s
+        self._rpc_timeout_s = rpc_timeout_s
+        self._timers: set = set()
+        self._closed = False
+        self._snap_req_ts = float("-inf")  # monotone request-ts floor
+        #: injected WAN policy (cluster chaos): per-attempt delay/drop
+        #: applied before the bytes reach gRPC — see :class:`WanFault`
+        self._send_fault = send_fault
+        #: late-bound client Submit sink (set_submit_sink)
+        self._submit_fn: Optional[Callable[[bytes], bytes]] = None
+        # Retry-backoff jitter (seeded per endpoint so scenarios replay):
+        # a restarted peer coming back mid-burst must not see every
+        # sender's exhausted retry chains re-fire in lockstep.
+        self._jitter = random.Random(0x6A17 + index)
+        # Observability (round-2 VERDICT weak #8: RpcErrors were silently
+        # swallowed — a flaky peer degraded to permanent round lag with
+        # zero counter movement). Shared with the process's Metrics when
+        # one is passed / attached, so net_* counters appear in the same
+        # snapshot as the consensus counters.
+        self.metrics = metrics if metrics is not None else Metrics()
+        # Failure detection (SURVEY §5): consecutive send failures per
+        # peer; a peer is reported down after `down_after` in a row and
+        # up again on the first success. Detection only — consensus
+        # tolerates the faults; operators get the signal.
+        self.down_after = 3
+        self._consec_fail: Dict[int, int] = {}
+        from concurrent import futures
+
+        self._server = grpc.server(
+            futures.ThreadPoolExecutor(max_workers=max_workers)
+        )
+        self._server.add_generic_rpc_handlers(
+            (
+                _DeliverHandler(
+                    self._on_rpc,
+                    snapshot_provider,
+                    auth,
+                    snapshot_min_interval_s=snapshot_min_interval_s,
+                    # operator knob: fleets with known clock skew widen
+                    # the window (or None to disable freshness checking
+                    # entirely) rather than wedge recovering nodes
+                    snapshot_freshness_s=snapshot_freshness_s,
+                    metrics_inc=self._inc,
+                    wall_clock=wall_clock,
+                    submit_sink=lambda: self._submit_fn,
+                ),
+            )
+        )
+        self.bound_port = self._server.add_insecure_port(listen_addr)
+        self._server.start()
+
+    def attach_metrics(self, metrics: Metrics) -> None:
+        """Point net_* counters at an external Metrics (e.g. the owning
+        Process's) so one snapshot shows transport + consensus health.
+        Merge and swap happen under the transport lock — completion
+        callbacks increment concurrently via :meth:`_inc`."""
+        with self._lock:
+            for name, val in list(self.metrics.counters.items()):
+                metrics.inc(name, val)
+            self.metrics = metrics
+
+    def _inc(self, name: str) -> None:
+        with self._lock:
+            self.metrics.inc(name)
+
+    # -- wire ----------------------------------------------------------------
+
+    def _on_rpc(self, payload: bytes) -> None:
+        if self._auth is not None:
+            # Authenticated frame: <u32 relayer> || codec message || MAC,
+            # MAC'd with the (relayer, me) pair key. The relayer is the
+            # transport-level sender; it differs from msg.sender only for
+            # relayed VALs (FETCH retransmissions and catch-up sync serve
+            # other processes' original signed vertices — those are
+            # self-certifying via the vertex signature + RBC digest
+            # votes). For every control kind, msg.sender must BE the
+            # authenticated relayer, or a single Byzantine peer could
+            # forge other processes' ECHO/READY votes / sync identities.
+            from dag_rider_tpu_torch.transport.auth import TAG_BYTES
+
+            if len(payload) < 4 + TAG_BYTES:
+                self._inc("net_auth_rejects")
+                return
+            (relayer,) = struct.unpack_from("<I", payload)
+            body, tag = payload[4:-TAG_BYTES], payload[-TAG_BYTES:]
+            if not self._auth.check(relayer, body, tag):
+                self._inc("net_auth_rejects")
+                return
+            try:
+                msg, _ = codec.decode_message(body)
+            except Exception:
+                return  # malformed bytes from a Byzantine peer: drop
+            if msg.kind != "val" and msg.sender != relayer:
+                self._inc("net_auth_rejects")
+                return
+        else:
+            try:
+                msg, _ = codec.decode_message(payload)
+            except Exception:
+                return  # malformed bytes from a Byzantine peer: drop
+        with self._lock:
+            self._inbox.append(msg)
+
+    def _stub(self, peer: int):
+        # Called from the owner thread AND retry-timer threads: channel
+        # creation must be locked or two threads can race a first send to
+        # the same peer and leak the losing channel.
+        with self._lock:
+            if peer not in self._stubs:
+                chan = grpc.insecure_channel(self._peers[peer])
+                self._channels[peer] = chan
+                self._stubs[peer] = chan.unary_unary(
+                    _METHOD,
+                    request_serializer=_identity,
+                    response_deserializer=_identity,
+                )
+            return self._stubs[peer]
+
+    # -- Transport interface -------------------------------------------------
+
+    def subscribe(self, index: int, handler: Handler) -> None:
+        if index != self.index:
+            raise ValueError(
+                f"GrpcTransport {self.index} can only host its own process"
+            )
+        if self._handler is not None:
+            raise ValueError("already subscribed")
+        self._handler = handler
+
+    def unsubscribe(self) -> None:
+        """Release the process slot so a rebuilt state machine can
+        subscribe (corrupt-checkpoint recovery swaps in a fresh
+        Process over the same live socket)."""
+        self._handler = None
+
+    def broadcast(self, msg: BroadcastMessage) -> None:
+        payload = codec.encode_message(msg)
+        if self._auth is not None:
+            prefix = struct.pack("<I", self.index)
+            for peer in sorted(self._peers):
+                if peer == self.index:
+                    continue
+                self._send(
+                    peer,
+                    prefix + payload + self._auth.tag(peer, payload),
+                    attempt=0,
+                )
+            return
+        for peer in sorted(self._peers):
+            if peer == self.index:
+                continue
+            self._send(peer, payload, attempt=0)
+
+    #: keep this enqueue OUT of honest protocol routing
+    #: (base.resolve_unicast): single-copy sync serves over a real
+    #: socket lose whole patience windows to transient send failures
+    #: during recovery — measured as a restarted node chasing a moving
+    #: head it never caught. The Byzantine seam ignores this gate.
+    protocol_unicast = False
+
+    def enqueue(self, dest: int, msg: BroadcastMessage) -> None:
+        """Point-to-point send — the per-destination seam Byzantine
+        behaviors resolve (consensus/adversary._resolve_enqueue), so
+        selective strategies like ``withhold`` stay per-destination
+        across a real process boundary instead of degrading to
+        broadcast-or-nothing."""
+        if dest == self.index or dest not in self._peers:
+            return
+        payload = codec.encode_message(msg)
+        if self._auth is not None:
+            payload = (
+                struct.pack("<I", self.index)
+                + payload
+                + self._auth.tag(dest, payload)
+            )
+        self._send(dest, payload, attempt=0)
+
+    def set_submit_sink(self, fn: Optional[Callable[[bytes], bytes]]) -> None:
+        """Open (or close, with None) the client Submit front door:
+        ``fn`` receives the raw request bytes and returns the response
+        bytes. Wired late by the cluster node runner — the sink needs
+        the fully built node, which needs this transport first."""
+        self._submit_fn = fn
+
+    def _send(self, peer: int, payload: bytes, attempt: int) -> None:
+        if self._closed:
+            return
+        if self._send_fault is not None:
+            verdict = self._send_fault(peer)
+            if verdict < 0:
+                # injected WAN loss: the attempt never leaves the host.
+                # Deliberately NOT charged to the failure detector — a
+                # lossy link is not a down peer, and consensus recovers
+                # through later broadcasts / anti-entropy.
+                self._inc("net_wan_drops")
+                return
+            if verdict > 0:
+                self._inc("net_wan_delays")
+                timer = threading.Timer(
+                    verdict,
+                    lambda: (
+                        self._timers.discard(timer),
+                        self._send_now(peer, payload, attempt),
+                    ),
+                )
+                timer.daemon = True
+                self._timers.add(timer)
+                timer.start()
+                return
+        self._send_now(peer, payload, attempt)
+
+    def _send_now(self, peer: int, payload: bytes, attempt: int) -> None:
+        if self._closed:
+            return
+        self._inc("net_sends")
+        try:
+            # async send; the future must be retained until it settles
+            # (grpc cancels calls whose handle is dropped). Consensus
+            # tolerates drops — a missing vertex only delays admission
+            # until a later broadcast covers it — but every failure is
+            # counted and retried with backoff before giving up.
+            fut = self._stub(peer).future(payload, timeout=self._rpc_timeout_s)
+        except (grpc.RpcError, ValueError):
+            # ValueError: update_peer closed the cached channel between
+            # _stub() and .future() — same remedy as an RPC error (the
+            # retry re-resolves through _stub, which builds the new
+            # channel)
+            self._on_failure(peer, payload, attempt)
+            return
+        with self._lock:
+            self._inflight_seq += 1
+            key = self._inflight_seq
+            self._inflight[key] = fut
+        fut.add_done_callback(
+            lambda f, k=key, p=peer, a=attempt: self._on_done(f, k, p, payload, a)
+        )
+
+    def _on_done(self, fut, key: int, peer: int, payload: bytes, attempt: int) -> None:
+        with self._lock:
+            self._inflight.pop(key, None)
+        if self._closed:
+            # close() cancels in-flight calls; a clean shutdown must not
+            # leave the counter signature of a flaky peer behind.
+            return
+        try:
+            exc = fut.exception()
+        except Exception:  # cancelled: treat as failure
+            exc = fut
+        if exc is None:
+            with self._lock:
+                self.metrics.inc("net_sends_ok")
+                was_down = self._consec_fail.get(peer, 0) >= self.down_after
+                self._consec_fail[peer] = 0
+            if was_down:
+                self._inc("net_peer_recovered")
+                self.log.event("net_peer_recovered", peer=peer)
+            return
+        self._on_failure(peer, payload, attempt)
+
+    def _on_failure(self, peer: int, payload: bytes, attempt: int) -> None:
+        if self._closed:
+            return
+        if attempt >= self._retries:
+            # The failure detector counts *logical messages* whose whole
+            # retry chain was exhausted — a single message's transient
+            # retry burst must not trip the down threshold by itself.
+            with self._lock:
+                self.metrics.inc("net_send_errors")
+                self.metrics.inc("net_drops")
+                self._consec_fail[peer] = self._consec_fail.get(peer, 0) + 1
+                fails = self._consec_fail[peer]
+                just_down = fails == self.down_after
+                # Channel recycle for restart recovery: once a peer
+                # trips down (and every 8th exhausted chain after),
+                # drop the cached channel so a later send re-dials
+                # fresh. A peer that died and came back ON THE SAME
+                # ADDRESS then reconnects within a few chains instead
+                # of waiting out gRPC's internal subchannel backoff
+                # (up to ~2 min idle after a long outage) — and the old
+                # channel is closed, not leaked. Throttled: re-dialing
+                # on EVERY chain while the peer stays dead churns a
+                # fresh channel (threads, fds, connect timeouts) per
+                # logical message and measurably drags the live quorum.
+                chan = None
+                if fails == self.down_after or (
+                    fails > self.down_after and fails % 8 == 0
+                ):
+                    chan = self._channels.pop(peer, None)
+                    self._stubs.pop(peer, None)
+            if chan is not None:
+                chan.close()
+            if just_down:
+                self._inc("net_peer_down")
+                self.log.event(
+                    "net_peer_down",
+                    peer=peer,
+                    consecutive=self.down_after,
+                )
+            return
+        with self._lock:
+            self.metrics.inc("net_send_errors")
+            self.metrics.inc("net_retries")
+            # +/-25% seeded jitter: a restarted peer must not absorb
+            # every sender's backed-off retries in one synchronized
+            # thundering burst.
+            jitter = 0.75 + 0.5 * self._jitter.random()
+        delay = self._retry_backoff_s * (2**attempt) * jitter
+        timer = threading.Timer(
+            delay, lambda: (self._timers.discard(timer),
+                            self._send(peer, payload, attempt + 1))
+        )
+        timer.daemon = True
+        self._timers.add(timer)
+        timer.start()
+
+    # -- pump (same contract as InMemoryTransport) ---------------------------
+
+    def pump_one(self) -> bool:
+        with self._lock:
+            if not self._inbox:
+                return False
+            msg = self._inbox.popleft()
+        if self._handler is not None:
+            self._handler(msg)
+        return True
+
+    def pump(self, max_messages: Optional[int] = None) -> int:
+        delivered = 0
+        while (
+            max_messages is None or delivered < max_messages
+        ) and self.pump_one():
+            delivered += 1
+        return delivered
+
+    @property
+    def pending(self) -> int:
+        with self._lock:
+            return len(self._inbox)
+
+    def fetch_snapshot(
+        self, peer: int, timeout_s: float = 30.0
+    ) -> Optional[bytes]:
+        """Blocking state-transfer fetch from one peer; None on failure
+        or refusal (empty response). Caller validates the bytes
+        (checkpoint.restore_from_snapshot) and tries other peers."""
+        if peer == self.index or peer not in self._peers:
+            return None
+        self._inc("net_snapshot_fetches")
+        req = b""
+        if self._auth is not None:
+            # Coarse wall-clock timestamp under the MAC: the donor
+            # rejects stale requests, so a captured frame on plaintext
+            # gRPC cannot be replayed indefinitely to burn its budget.
+            # Kept strictly monotone within this process so a backward
+            # clock step (first NTP sync mid-recovery) cannot make our
+            # own requests read as stale/replayed at the donor.
+            with self._lock:
+                t = max(self._wall(), self._snap_req_ts + 1e-3)
+                self._snap_req_ts = t
+            ts = struct.pack("<d", t)
+            req = (
+                struct.pack("<I", self.index)
+                + ts
+                + self._auth.tag(peer, _SNAP_DOMAIN + ts)
+            )
+        try:
+            self._stub(peer)  # ensures the peer channel exists (locked)
+            with self._lock:
+                chan = self._channels.get(peer)
+            if chan is None:  # update_peer raced the fetch: treat as fail
+                self._inc("net_snapshot_errors")
+                return None
+            call = chan.unary_unary(
+                _SNAPSHOT_METHOD,
+                request_serializer=_identity,
+                response_deserializer=_identity,
+            )
+            blob = call(req, timeout=timeout_s)
+        except (grpc.RpcError, ValueError):
+            # ValueError: update_peer closed the channel mid-fetch — same
+            # contract as an RPC failure (caller tries the next peer)
+            self._inc("net_snapshot_errors")
+            return None
+        return bytes(blob) if blob else None
+
+    def update_peer(self, peer: int, addr: str) -> None:
+        """Repoint a peer to a new address, dropping the cached channel.
+
+        Deployments normally use STABLE addresses (the node config's
+        peer table), where a restarted peer reappears on the same
+        host:port and the existing channel reconnects by itself. This
+        exists for the dynamic case (ephemeral ports, rescheduled pods):
+        without it, the cached stub keeps sending into the dead old
+        address forever while the peer table lies about the new one.
+        """
+        with self._lock:
+            self._peers[peer] = addr
+            chan = self._channels.pop(peer, None)
+            self._stubs.pop(peer, None)
+            # _consec_fail is deliberately kept: a peer marked down stays
+            # down until a send SUCCEEDS against the new address, so
+            # peer_status honors its contract and net_peer_recovered
+            # fires exactly once on the actual recovery.
+        if chan is not None:
+            chan.close()
+
+    def peer_status(self) -> Dict[int, str]:
+        """Failure-detector view: peer -> "up" | "down" (down = at least
+        ``down_after`` consecutive send failures with no success since)."""
+        with self._lock:
+            return {
+                peer: (
+                    "down"
+                    if self._consec_fail.get(peer, 0) >= self.down_after
+                    else "up"
+                )
+                for peer in self._peers
+                if peer != self.index
+            }
+
+    def close(self) -> None:
+        self._closed = True
+        for t in list(self._timers):
+            t.cancel()
+        self._server.stop(grace=None)
+        with self._lock:
+            channels = list(self._channels.values())
+        for chan in channels:
+            chan.close()

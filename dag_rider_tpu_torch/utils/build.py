@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 from typing import Dict, List
@@ -36,6 +37,9 @@ NVCC_FLAGS = [
 NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+#: one build or load at a time: the nodes of one process reach their
+#: first launch from their own threads
+_LOCK = threading.RLock()
 
 #: seconds the last :func:`build_all` spent in nvcc (0.0 when every
 #: library was already built)
@@ -69,6 +73,11 @@ def build_all() -> Dict[str, Path]:
     """Compile every source whose library is missing; returns stem -> path.
 
     Raises RuntimeError with nvcc's output when a build fails."""
+    with _LOCK:
+        return _build_all()
+
+
+def _build_all() -> Dict[str, Path]:
     global last_build_s
     headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     targets = {src.stem: (src, _target(src, headers)) for src in sorted(CSRC.glob("*.cu"))}
@@ -113,7 +122,8 @@ def ptxas_report(stem: str) -> List[str]:
 
 def library(stem: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<stem>.cu`` (built if needed)."""
-    lib = _LIBS.get(stem)
-    if lib is None:
-        lib = _LIBS[stem] = ctypes.CDLL(str(build_all()[stem]))
-    return lib
+    with _LOCK:
+        lib = _LIBS.get(stem)
+        if lib is None:
+            lib = _LIBS[stem] = ctypes.CDLL(str(build_all()[stem]))
+        return lib

@@ -12,8 +12,21 @@ two more kinds of declared seam: strings that name the port's own root
 script (``STRINGS``, mapped back before the comparison), and functions whose bodies are the
 port's own (``OWN``: ``run_static`` leaves out the unported ``jitpure`` and
 ``shapes``, the runner's ``main`` names them), each pinned by a test of
-its behaviour in ``tests/test_torch_analysis.py``. A copy cannot drift
-unseen.
+its behaviour in ``tests/test_torch_analysis.py``. The networked
+deployment's copies (the gRPC transport, the blob bus, the sidecar, the
+node and the cluster harness) have a fourth kind, ``BLOCKS``: a stretch of
+the port's source that reads the reference's stretch before parsing. The
+sidecar warms its backend up without the reference's XLA cache call, the
+node builds the card's verifiers where the reference builds the TPU's,
+hands its coin "host" where the reference hands it None and reads a
+``sync_patience`` key (a socket committee needs more anti-entropy patience
+than the simulator's default), and the cluster runner drops from its
+restored proposal queue, and through the mempool's one added method
+``Mempool.drop_committed`` from its pool, what its delivery log or hint
+shows committed (the reference keeps it: a kill -9 rejoin then commits a
+transaction twice); each is pinned by a test of its behaviour in
+``tests/test_torch_node.py``, ``tests/test_torch_net.py`` and
+``tests/test_torch_cluster.py``. A copy cannot drift unseen.
 """
 
 import ast
@@ -45,6 +58,13 @@ COPIES = {
     "transport/auth.py": (),
     "verifier/resilient.py": (),
     "verifier/cpu.py": (),
+    # the networked deployment
+    "transport/net.py": (),
+    "transport/blobbus.py": (),
+    "verifier/sidecar.py": (),
+    "node.py": (),
+    **{f"cluster/{m}.py": () for m in (
+        "__init__", "directory", "runner", "supervisor", "client", "audit")},
     # the checkers (driderlint)
     **{f"analysis/{m}.py": () for m in (
         "core", "allowlist", "knobs", "determinism", "oracle", "metricsreg", "events",
@@ -77,6 +97,113 @@ OWN = {
 OWN_NAMES = {
     "analysis/core.py": ("UNPORTED",),
     "analysis/__main__.py": ("UNPORTED",),
+}
+
+#: module path -> ((port source, reference source), ...): each port
+#: stretch occurs exactly once and reads the reference's before parsing
+BLOCKS = {
+    "verifier/sidecar.py": ((
+        """        if hasattr(backend, "warmup"):
+            if warmup:
+""",
+        """        if hasattr(backend, "warmup"):
+            from dag_rider_tpu.utils.jaxcache import enable_persistent_cache
+
+            enable_persistent_cache()
+            if warmup:
+""",
+    ),),
+    "node.py": ((
+        """            from dag_rider_tpu_torch.verifier.cuda import CUDAVerifier
+            from dag_rider_tpu_torch.verifier.pipeline import VerifierPipeline
+
+            if kind == "sharded":
+                from dag_rider_tpu_torch.parallel.mesh import mesh_from_env
+                from dag_rider_tpu_torch.parallel.sharded_verifier import (
+                    ShardedCUDAVerifier,
+                )
+
+                base = ShardedCUDAVerifier(reg, mesh_from_env())
+            else:
+                base = CUDAVerifier(reg)
+""",
+        """            from dag_rider_tpu.utils.jaxcache import enable_persistent_cache
+            from dag_rider_tpu.verifier.pipeline import VerifierPipeline
+            from dag_rider_tpu.verifier.tpu import TPUVerifier
+
+            enable_persistent_cache()
+            if kind == "sharded":
+                from dag_rider_tpu.parallel.mesh import mesh_from_env
+                from dag_rider_tpu.parallel.sharded_verifier import (
+                    ShardedTPUVerifier,
+                )
+
+                base = ShardedTPUVerifier(reg, mesh_from_env())
+            else:
+                base = TPUVerifier(reg)
+""",
+    ), (
+        """            sync_patience=int(cfg.get("sync_patience", 8)),
+""",
+        "",
+    ), (
+        """            msm = "host"
+            msm_kind = cfg.get("coin_msm", "host")
+""",
+        """            msm = None
+            msm_kind = cfg.get("coin_msm", "host")
+""",
+    )),
+    "cluster/runner.py": (
+        ("""        self._drop_committed_blocks()
+        self._reinject()
+""", """        self._reinject()
+"""),
+        ("""    def _drop_committed_blocks(self) -> None:
+        \"\"\"Take out of the restored proposal queue every transaction a
+        delivery log shows committed, before the pump (which owns the
+        queue) starts: the queue is checkpointed with the node, and
+        holds the same hazard as the mempool (see
+        :meth:`Mempool.drop_committed`).\"\"\"
+        committed = read_delivered_txs(self.files["delivery_log"])
+        committed |= read_hint(self.files["delivered_hint"])
+        queue = self.node.process.blocks_to_propose
+        kept = []
+        for block in queue:
+            if isinstance(block, Block):
+                txs = tuple(tx for tx in block.transactions if tx not in committed)
+                if not txs:
+                    continue
+                if len(txs) < len(block.transactions):
+                    block = Block(txs)
+            kept.append(block)
+        queue.clear()
+        queue.extend(kept)
+
+""", ""),
+        ("""        covered |= read_hint(self.files["delivered_hint"])
+        if self.node.mempool is not None:
+            self.node.mempool.drop_committed(covered)
+        try:""", """        covered |= read_hint(self.files["delivered_hint"])
+        try:"""),
+    ),
+    "mempool/__init__.py": ((
+        """
+    def drop_committed(self, committed) -> int:
+        \"\"\"Take out of the pool every pending transaction that
+        ``committed`` (a set of payloads) holds, with its latency stamp;
+        returns how many left. A node restored from a checkpoint can hold
+        one that its previous incarnation proposed and the cluster
+        committed; if it then jumps past that commit by state transfer it
+        never delivers it itself, and would batch it a second time.\"\"\"
+        with self._lock:
+            gone = [e.tx for e in self.pool.pending() if e.tx in committed]
+            for tx in gone:
+                self.pool._remove(tx)
+                self._inflight.pop(tx, None)
+            return len(gone)
+""", ""),
+    ),
 }
 
 
@@ -148,9 +275,18 @@ class _Normalise(ast.NodeTransformer):
         return self.generic_visit(node)
 
 
-def normalised(path: Path, seams=(), strings=None, own=(), own_names=()) -> str:
+def with_blocks(source: str, blocks=()) -> str:
+    """``source`` with each declared port stretch read as the reference's;
+    a stretch that is missing or occurs twice fails."""
+    for port, ref in blocks:
+        assert source.count(port) == 1, f"declared block occurs {source.count(port)} times"
+        source = source.replace(port, ref)
+    return source
+
+
+def normalised(path: Path, seams=(), strings=None, own=(), own_names=(), blocks=()) -> str:
     tree = _Normalise(seams, strings, own, own_names).visit(
-        ast.parse(path.read_text(), filename=str(path)))
+        ast.parse(with_blocks(path.read_text(), blocks), filename=str(path)))
     return ast.dump(tree).replace("dag_rider_tpu_torch", "dag_rider_tpu")
 
 
@@ -179,13 +315,24 @@ def test_the_normaliser_maps_only_declared_seams():
     assert norm(port.replace("return 'chip", "return 'a_chip"), **seams) != norm(ref, own=("g",))
 
 
+def test_a_declared_block_maps_back_only_where_it_stands():
+    ref = "def f():\n    x = None\n    return g(x)\n"
+    port = "def f():\n    x = 'host'\n    return g(x)\n"
+    block = (("    x = 'host'\n", "    x = None\n"),)
+    assert ast.dump(ast.parse(with_blocks(port, block))) == ast.dump(ast.parse(ref))
+    with pytest.raises(AssertionError):
+        with_blocks(port.replace("'host'", "'device'"), block)
+    with pytest.raises(AssertionError):
+        with_blocks(port + port.replace("def f", "def h"), block)
+
+
 @pytest.mark.parametrize("rel", sorted(COPIES))
 def test_port_module_is_a_copy(rel):
     port = ROOT / "dag_rider_tpu_torch" / rel
     ref = ROOT / "dag_rider_tpu" / rel
     own = OWN.get(rel, ())
-    assert normalised(port, COPIES[rel], STRINGS.get(rel), own, OWN_NAMES.get(rel, ())) == \
-        normalised(ref, own=own), (
+    assert normalised(port, COPIES[rel], STRINGS.get(rel), own, OWN_NAMES.get(rel, ()),
+                      BLOCKS.get(rel, ())) == normalised(ref, own=own), (
         f"dag_rider_tpu_torch/{rel} differs from dag_rider_tpu/{rel} beyond its imports "
         f"and declared seams {COPIES[rel]}")
 
