@@ -17,8 +17,13 @@ signatures). The script:
 1. prints the card's name and power limit, builds the kernels from
    ``dag_rider_tpu_torch/csrc`` with nvcc, and prints the ptxas register
    and spill report; builds the native challenge library
-   (``csrc/challenge.cpp``, g++) and prints its build seconds;
-2. builds the n = 256 registry, the device comb tables, runs
+   (``csrc/challenge.cpp``, g++) and prints its build seconds; loads the
+   card's context and the kernel libraries;
+2. builds the n = 256 registry and the device comb tables, the table
+   path: the counters at 0 just before ``comb_tables()`` and read just
+   after (exactly two ``key_tables`` launches, nothing else), the tables
+   byte-identical to the plain build on the card, the build's wall, its
+   kernels' time and its bound; runs
    ``CUDAVerifier.warmup`` at the path's bucket (no dispatch counter
    booked), and signs the rounds, with a seeded subset corrupted (bad
    signature bit, another vertex's signature, out-of-range source,
@@ -26,7 +31,8 @@ signatures). The script:
 3. kernel phase: each kernel against its plain torch version on the card
    at the path's widths, exactly, timed with CUDA events beside the plain
    version and a lower bound on the card's time: the per-lane addition
-   ``padd_xx`` (the tree's unit kernel), the one-launch comb tree
+   ``padd_xx`` (the tree's unit kernel; also at 256, 1,024, 4,096,
+   16,384 and 262,144 lanes in a CUDA graph), the one-launch comb tree
    ``tree_sum_xyzt``, the finish tail (on the real rows with the edge rows
    of ``tests/torch_edge_rows.py`` mixed in) and ``pow22523`` (with edge
    limbs mixed in), each also replayed in a CUDA graph, and the field
@@ -52,7 +58,8 @@ signatures). The script:
    tier (windows poisoned, chunks quarantined, none rejected, the same
    masks), and a clean run after disarming;
 6. 8-bit comb phase (``DAGRIDER_COMB_BITS=8``): the n = 256 tables' build
-   time and bytes, one merged dispatch with exactly one ``tree_sum_xyzt``
+   through the table path (two ``key_tables8`` launches, byte-identical to
+   the plain build on the card), its time and bytes, one merged dispatch with exactly one ``tree_sum_xyzt``
    (32 entries a group) and one ``finish_check``, its mask equal to the
    4-bit mask on every row and the host oracle on the sample, its wall and
    split, and the tree kernel at M = 32 against its plain version, exactly,
@@ -124,8 +131,9 @@ signatures). The script:
    ``VerifierPipeline(depth=2)`` on one card, ``mesh_from_env()`` and
    ``virtual_mesh(4)`` (masks equal, launches k a chunk, sigs/s in turns)
    and one ``virtual_mesh(5)`` dispatch;
-11. BASELINE config #5 (after the BLS phases): n = 1,024, 4 rounds signed
-   in spawn workers, 64 corrupted, one merged dispatch through
+11. BASELINE config #5 (after the BLS phases): n = 1,024, its comb tables
+   through the table path (two ``key_tables`` launches, byte-identical to
+   the plain build on the card), 4 rounds signed in spawn workers, 64 corrupted, one merged dispatch through
    ``ShardedCUDAVerifier`` on ``mesh_from_env()``, the T = 1,024 MSM
    through ``ShardedMSM()`` and 683 signatures summed by
    ``CertVerifier(msm="sharded")``, launches exact; masks equal to
@@ -201,7 +209,9 @@ signatures). The script:
    ``windowed_launches``, ``n1024_launches``, ``sharded_launches``,
    ``host_layer_launches`` per phase A-F, ``ladder_launches`` per run of
    phase G and ``networked_launches`` for I1 and I2; the tree's row
-   carries its M = 32 reading under ``at_m32``), the card line again, and
+   carries its M = 32 reading under ``at_m32``, ``padd_xx``'s its widths;
+   the ``key_tables`` and ``key_tables8`` rows each build of their width;
+   every row its kernels' ptxas registers and spills), the card line again, and
    as the last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. Run it from the root of
@@ -232,6 +242,7 @@ CERT_QUORUM = 2 * (BLS_N // 3) + 1  # 2f + 1 = 171 signatures per certificate
 BAD_SHARE = 17  # index of the corrupted share, among the first f + 1
 WIDE_LANES = 65536  # padd381_xx's widest check, beyond the path's widths
 FIELD_MUL_WIDE = 262144  # field_mul's graph time at a width that fills the card
+PADD_WIDTHS = (256, 1024, 4096, 16384, 262144)  # padd_xx's graph times
 MSM_REPEATS = 5
 
 PREP_REPEATS = 7  # host prep timings: median of this many, in turns
@@ -243,7 +254,9 @@ CONS_N = 256  # the consensus phase's committee (BASELINE.json config #4)
 # G2 stays)
 CONS_WAVES = 2
 CONS_MAX_RUNS = 40  # cap on Simulation.run calls before the phase fails
-CERT_BLOCKS = 10  # blocks a process submits in the certificate cell: 10 rounds, 2 waves
+# blocks a process submits in the certificate cell: 8 rounds, the fewest that
+# decide 2 waves (bench.py's rung: 14; cut to fit the time limit)
+CERT_BLOCKS = 8
 
 N1024 = 1024  # BASELINE.json config #5: "1024-node full-wave MSM"
 N1024_ROUNDS = 4  # bench.py's verify1024 rung: 4 rounds of 1,024 signed vertices
@@ -318,6 +331,33 @@ HBM_BYTES_PER_S = 3.35e12
 # INT32 units) x the SM count x the card's maximum SM clock.
 INT32_LANES_PER_SM_CLOCK = 64
 IMAD_PER_PRODUCT = 22 * 22  # one general 22-limb schoolbook product
+D2_NONZERO_LIMBS = 21  # limbs of 2d (ops/field.py's D2) that are not 0
+PADD_IMADS = 8 * IMAD_PER_PRODUCT + 22 * D2_NONZERO_LIMBS  # padd_cached(p, to_cached(q))
+PDOUBLE_IMADS = 8 * IMAD_PER_PRODUCT  # pdouble_packed: four squares, four products
+
+
+# The functions each kernel row launches, by source stem (for the ptxas
+# register and spill counts in the {"kernels"} line).
+KERNEL_FUNCS = {
+    "padd_xx": [("ed25519_group", "padd_xx_kernel")],
+    "tree_sum_xyzt": [("ed25519_group", "tree_sum_xyzt_kernel")],
+    "finish_check": [("ed25519_group", "finish_kernel")],
+    "pow22523": [("ed25519_group", "pow22523_kernel")],
+    "field_mul": [("ed25519_group", "field_mul_kernel")],
+    "key_tables": [("ed25519_group", "key_bases_kernel"), ("ed25519_group", "key_entries_kernel")],
+    "key_tables8": [("ed25519_group", "key_bases_kernel"),
+                    ("ed25519_group", "key_entries8_kernel")],
+    "padd381_xx": [("bls381_group", "padd381_kernel")],
+    "horner381": [("bls381_group", "horner381_kernel")],
+}
+# The jnp scans the table kernels replace (no pallas_call there).
+TABLE_REPLACES = {
+    "key_tables": "dag_rider_tpu/ops/comb.py:130 (build_key_tables, jnp lax.scan)",
+    "key_tables8": "dag_rider_tpu/ops/comb.py:197 (build_key_tables8, jnp lax.scan)",
+}
+# What every launch gate outside the table path wants of the table kernels:
+# a verifier whose tables were built inside a gated window fails its gate.
+NO_TABLES = {"key_tables": 0, "key_tables8": 0}
 
 
 def fail(msg: str) -> None:
@@ -384,6 +424,97 @@ def bound(bytes_moved: float, imads: float, imad_per_s: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def table_work(n: int, bits: int):
+    """(bytes, int32 multiply-adds) of one comb table build of n keys: the
+    key limbs read once and the tables written once; the window bases'
+    doublings, then the entries' additions (4-bit) or each window's 127
+    doublings and 127 additions (8-bit)."""
+    windows, dbl, entries = (64, 4, 16) if bits == 4 else (32, 8, 256)
+    bytes_moved = 4 * (3 * n * 22 + n * windows * entries * 88)
+    doubles = n * (windows - 1) * dbl
+    # a 4-bit window adds its base 15 times; an 8-bit window's 7 levels
+    # (1, 2, ..., 64 entries) double 127 entries and add the base to 127
+    adds = n * windows * (entries - 1 if bits == 4 else entries // 2 - 1)
+    if bits == 8:
+        doubles += adds
+    return bytes_moved, doubles * PDOUBLE_IMADS + adds * PADD_IMADS
+
+
+def ptxas_kernels(stem: str) -> dict:
+    """{kernel name: {"registers", "spill_bytes"}} from the ptxas report of
+    ``csrc/<stem>.cu`` (names demangled from their Itanium prefix)."""
+    import re
+
+    from dag_rider_tpu_torch.utils import build
+
+    out, name = {}, None
+    for line in build.ptxas_report(stem):
+        m = re.search(r"entry function '_Z(\d+)(\w+)'", line)
+        if m:
+            name = m.group(2)[: int(m.group(1))]
+            out[name] = {"registers": None, "spill_bytes": 0}
+        elif name and "spill" in line:
+            out[name]["spill_bytes"] = sum(int(b) for b in re.findall(r"(\d+) bytes spill", line))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def table_build_gate(label: str, ver, imad_per_s: float):
+    """One comb table build as a user reaches it, ``ver.comb_tables()`` of
+    a fresh verifier, with the launch counters at 0 just before and read
+    just after: exactly ``TABLE_KERNELS`` launches of its table kernels and
+    nothing else. Its key tables (and the 8-bit base table, built as key n)
+    must equal the plain build's on the card byte for byte. Prints the
+    build's wall beside its bound and the kernels' own time (CUDA events);
+    returns ((key tables, base table), its record)."""
+    import numpy as np
+    import torch
+
+    from dag_rider_tpu_torch.crypto import ed25519
+    from dag_rider_tpu_torch.ops import comb, cuda_field, cuda_group as CG, field as F
+
+    bits = ver._comb_bits
+    name = "key_tables" if bits == 4 else "key_tables8"
+    torch.cuda.synchronize()
+    CG.reset_launches()
+    cuda_field.reset_launches()
+    t0 = time.perf_counter()
+    tables, b_tab = ver.comb_tables()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**CG.LAUNCHES, **CG.TABLE_LAUNCHES, **cuda_field.LAUNCHES}
+    want = {**dict.fromkeys(launches, 0), name: CG.TABLE_KERNELS}
+    if launches != want:
+        fail(f"{label}: the table build launched {launches}, want {want}")
+    keys = [ver._a_x, ver._a_y, ver._a_t]
+    if bits == 8:  # the base point B is key n of the 8-bit build
+        bx, by, _, bt = ed25519.B
+        keys = [np.concatenate([a, F.to_limbs(c)[None]]) for a, c in zip(keys, (bx, by, bt))]
+    keys = [torch.as_tensor(a, device=ver.device) for a in keys]
+    plain_fn = comb.build_key_tables_plain if bits == 4 else comb.build_key_tables8_plain
+    t0 = time.perf_counter()
+    plain = plain_fn(*keys).reshape(-1, 88)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    got = tables if bits == 4 else torch.cat([tables, b_tab])
+    if got.shape != plain.shape or not torch.equal(got, plain):
+        fail(f"{label}: the table build differs from the plain build on the card")
+    del got, plain
+    kernel_fn = CG.key_tables if bits == 4 else CG.key_tables8
+    ms = cuda_ms(lambda: kernel_fn(*keys), 5, 1)
+    b_ms, b_by = bound(*table_work(len(keys[0]), bits), imad_per_s)
+    print(f"table build {label} ({len(keys[0])} keys, {bits}-bit): {wall * 1e3:.3f} ms wall "
+          f"through comb_tables(), {name} kernels {ms:.4f} ms (CUDA events), bound "
+          f"{b_ms:.4f} ms by {b_by}; plain build on the card {plain_s:.2f} s; "
+          f"byte-identical; launches {name} {CG.TABLE_KERNELS}, nothing else")
+    return (tables, b_tab), {
+        "label": label, "name": name, "keys": len(keys[0]), "launches": CG.TABLE_KERNELS,
+        "wall_ms": wall * 1e3, "ms": ms, "plain_ms": plain_s * 1e3, "bound_ms": b_ms,
+        "bound_by": b_by,
+    }
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -410,8 +541,9 @@ def main() -> int:
     garbage = next(kw["cycles"] for kw in BYZ_PLAN if kw.get("adversary") == "garbage_coin")
     print(f"depth cuts to fit the time limit (every gate stays): consensus phases 8, 9, 12 "
           f"and G2 to {CONS_WAVES} decided waves (bench.py's rung: 3), the certificate cell "
-          f"to {CERT_BLOCKS} blocks a process; the mempool chaos rung to {CHAOS_S:g} s of "
-          f"virtual load (its 1 s); garbage_coin to {garbage} cycle(s) (the rung's 4)")
+          f"to {CERT_BLOCKS} blocks a process (the rung's 14); the mempool chaos rung to "
+          f"{CHAOS_S:g} s of virtual load (its 1 s); garbage_coin to {garbage} cycle(s) (the "
+          f"rung's 4)")
     max_sm_mhz = float(smi("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     imad_per_s = INT32_LANES_PER_SM_CLOCK * sms * max_sm_mhz * 1e6
@@ -445,6 +577,14 @@ def main() -> int:
     print(f"native challenge library: {native.library_path().name}, g++ "
           f"{native.last_build_s:.2f} s, load {time.perf_counter() - t0:.2f} s")
     native.reset_rows()
+    # the card's context and the kernel libraries, so that the first table
+    # build's wall holds neither (its first launches still load the kernels)
+    t0 = time.perf_counter()
+    torch.zeros(1, device="cuda")
+    for stem in libs:
+        build.library(stem)
+    torch.cuda.synchronize()
+    print(f"card context and kernel libraries loaded: {time.perf_counter() - t0:.2f} s")
 
     # -- set-up: registry, device tables, signed rounds ---------------------
     t0 = time.perf_counter()
@@ -453,10 +593,12 @@ def main() -> int:
     t_keys = time.perf_counter() - t0
     ver = CUDAVerifier(reg)  # on the card: there is no other default
     dev = ver.device
-    t0 = time.perf_counter()
-    tables, b_tab = ver.comb_tables()
-    torch.cuda.synchronize()
-    t_tables = time.perf_counter() - t0
+    # the table path: each build's launches gated, its tables held against
+    # the plain build (4-bit here, 8-bit in phase 6, n = 1,024 in phase 11)
+    builds = []
+    (tables, b_tab), rec = table_build_gate("n = 256", ver, imad_per_s)
+    builds.append(rec)
+    t_tables = rec["wall_ms"] / 1e3
     # warmup at the path's bucket: libraries, tables, native library and one
     # all-padding dispatch, booking none of the dispatch counters
     t_warm = ver.warmup(ROUNDS * N_KEYS)
@@ -477,7 +619,7 @@ def main() -> int:
     t_sign = time.perf_counter() - t0
     total = ROUNDS * N_KEYS
     corrupted = corrupt_rounds(rounds, N_KEYS, rng)
-    print(f"set-up: keys {t_keys:.2f} s, device tables {t_tables:.2f} s "
+    print(f"set-up: keys {t_keys:.2f} s, device tables {t_tables:.4f} s "
           f"({tables.numel() * 4 / 2**20:.0f} MiB), warmup at {total} rows {t_warm:.2f} s, "
           f"signing {total} vertices {t_sign:.2f} s, {len(corrupted)} corrupted")
 
@@ -516,9 +658,32 @@ def main() -> int:
     got = CG.padd_xx(p, q)
     want = CG.padd_xx_plain(p, q)
     d2_nnz = int((F.D2 != 0).sum())
+    if d2_nnz != D2_NONZERO_LIMBS:
+        fail(f"2d has {d2_nnz} nonzero limbs, the bounds count {D2_NONZERO_LIMBS}")
     record("padd_xx", "dag_rider_tpu/ops/pallas_group.py:211", got, want,
            cuda_ms(lambda: CG.padd_xx(p, q), 20), cuda_ms(lambda: CG.padd_xx_plain(p, q), 3, 1),
-           3 * 88 * 4 * half, half * (8 * IMAD_PER_PRODUCT + 22 * d2_nnz), half)
+           3 * 88 * 4 * half, half * PADD_IMADS, half)
+    report[-1]["graph_ms"] = graph_ms(lambda: CG.padd_xx(p, q), 20)
+    # at the paths' widths, on seeded reduced limbs (column slices of one
+    # tensor), exact, in a CUDA graph: 256 and 1,024 lanes (n = 256 and
+    # 1,024 keys), 4,096 (the windowed walk), 16,384 (the widest level of
+    # an 8-bit build) and the first tree level's 262,144
+    pr = np.random.default_rng(SEED + 2)
+    padd_widths = {}
+    for lanes in PADD_WIDTHS:
+        lx = pr.integers(-8191, 8192, (88, 2 * lanes), dtype=np.int32)
+        lx[::22] = pr.integers(-16383, 16384, (4, 2 * lanes), dtype=np.int32)
+        lx = torch.from_numpy(lx).to(dev)
+        lp, lq = lx[:, :lanes], lx[:, lanes:]
+        if not torch.equal(CG.padd_xx(lp, lq), CG.padd_xx_plain(lp, lq)):
+            fail(f"padd_xx disagrees with its plain version at {lanes} lanes")
+        g_ms = graph_ms(lambda: CG.padd_xx(lp, lq), 20)
+        b_ms, b_by = bound(3 * 88 * 4 * lanes, lanes * PADD_IMADS, imad_per_s)
+        padd_widths[str(lanes)] = {"graph_ms": g_ms, "bound_ms": b_ms, "bound_by": b_by}
+        print(f"  padd_xx at {lanes} lanes: exact, {g_ms:.4f} ms in a CUDA graph, bound "
+              f"{b_ms:.4f} ms by {b_by} ({b_ms / g_ms:.1%} of the bound's rate)")
+    report[-1]["widths"] = padd_widths
+    del lx, lp, lq
 
     # the whole comb tree in one launch: 2 * 4096 groups of 64 entries,
     # 63 additions each, read from the gather's own output
@@ -529,7 +694,7 @@ def main() -> int:
            cuda_ms(lambda: CG.tree_sum_xyzt(entries), 20),
            cuda_ms(lambda: comb.tree_sum_packed(entries), 2, 1),
            4 * (entries.numel() + acc.numel()),
-           tree_adds * (8 * IMAD_PER_PRODUCT + 22 * d2_nnz), flat_n)
+           tree_adds * PADD_IMADS, flat_n)
     report[-1]["entries_per_group"] = m
     report[-1]["graph_ms"] = graph_ms(lambda: CG.tree_sum_xyzt(entries), 20)
     tree_ms = report[-1]["ms"]
@@ -605,12 +770,13 @@ def main() -> int:
     cuda_field.reset_launches()
     masks = ver.verify_rounds(rounds)
     torch.cuda.synchronize()
-    launches = {**CG.LAUNCHES, **cuda_field.LAUNCHES}
+    launches = {**CG.LAUNCHES, **CG.TABLE_LAUNCHES, **cuda_field.LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
     print(f"path launches: {launches}")
-    if (launches["tree_sum_xyzt"], launches["finish_check"], launches["padd_xx"]) != (1, 1, 0):
-        fail(f"the dispatch launched {launches}; want one tree_sum_xyzt, one finish_check "
-             f"and no padd_xx")
+    if (launches["tree_sum_xyzt"], launches["finish_check"], launches["padd_xx"]) != (1, 1, 0) \
+            or any(launches[k] for k in NO_TABLES):
+        fail(f"the dispatch launched {launches}; want one tree_sum_xyzt, one finish_check, "
+             f"no padd_xx and no table build")
     for row in report:
         row["launches"] = launches[row["name"]]
     if [len(mk) for mk in masks] != [N_KEYS] * ROUNDS:
@@ -668,7 +834,7 @@ def main() -> int:
              f"row must take the native route")
     host_prep_phase(ver, rounds, mask)
     tree_row = next(r for r in report if r["name"] == "tree_sum_xyzt")
-    tree_row["at_m32"] = comb8_phase(reg, rounds, mask, sample, oracle, imad_per_s)
+    tree_row["at_m32"] = comb8_phase(reg, rounds, mask, sample, oracle, imad_per_s, builds)
     windowed_launches, windowed_row = windowed_phase(reg, rounds, mask, sample, oracle,
                                                      imad_per_s)
     vote_rows = round_step_phase(reg, rounds, mask, imad_per_s)
@@ -679,7 +845,7 @@ def main() -> int:
     report.extend(bls_rows)
     programs.append(windowed_row)
     programs.extend(vote_rows)
-    n1024_launches, n1024_msm_row = n1024_phase(imad_per_s)
+    n1024_launches, n1024_msm_row = n1024_phase(imad_per_s, builds)
     programs.append(n1024_msm_row)
 
     ref = consensus_phase()
@@ -699,6 +865,22 @@ def main() -> int:
         row["host_layer_launches"] = {k: v.get(name, 0) for k, v in host_layer.items()}
         row["ladder_launches"] = {k: v.get(name, 0) for k, v in ladder_launches.items()}
         row["networked_launches"] = {k: v.get(name, 0) for k, v in networked.items()}
+
+    for rec in builds:  # the table kernels: one row a width, each build listed
+        row = next((r for r in report if r["name"] == rec["name"]), None)
+        if row is None:
+            row = {
+                "name": rec["name"], "route": "cuda", "source": CG.SOURCE,
+                "replaces": TABLE_REPLACES[rec["name"]], "launches": rec["launches"],
+                "max_abs_err": 0, "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": None,
+                "keys": rec["keys"], "wall_ms": rec["wall_ms"], "builds": [],
+            }
+            report.append(row)
+        row["builds"].append(rec)
+    ptxas = {stem: ptxas_kernels(stem) for stem in ("ed25519_group", "bls381_group")}
+    for row in report:
+        row["ptxas"] = {f: ptxas[stem].get(f) for stem, f in KERNEL_FUNCS[row["name"]]}
 
     print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"device_programs": programs}))
@@ -844,9 +1026,9 @@ def host_prep_phase(ver, rounds, mask) -> None:
                 torch.cuda.synchronize()
                 runs[depth]["prep"].append(ver.total_prepare_s - p0)
                 runs[depth]["wait"].append(ver.total_dispatch_s - d0)
-                launches = {**CG.LAUNCHES, **cuda_field.LAUNCHES}
+                launches = {**CG.LAUNCHES, **CG.TABLE_LAUNCHES, **cuda_field.LAUNCHES}
                 want = {"padd_xx": 0, "tree_sum_xyzt": chunks, "finish_check": chunks,
-                        "pow22523": 0, "field_mul": 0}
+                        "pow22523": 0, "field_mul": 0, **NO_TABLES}
                 if launches != want:
                     fail(f"streamed depth {depth}: launches {launches}, want {want}")
                 if flat_mask(got) != mask:
@@ -895,16 +1077,17 @@ def host_prep_phase(ver, rounds, mask) -> None:
         ver.prep_workers = None
 
 
-def comb8_phase(reg, rounds, mask, sample, oracle, imad_per_s: float) -> dict:
+def comb8_phase(reg, rounds, mask, sample, oracle, imad_per_s: float, builds: list) -> dict:
     """The 8-bit comb (DAGRIDER_COMB_BITS=8) at n = 256: the table build
-    (time and bytes), one merged 4,096-signature dispatch whose mask
+    (``table_build_gate``, its record appended to ``builds``; time and
+    bytes), one merged 4,096-signature dispatch whose mask
     equals the 4-bit mask on every row and the host oracle on the sample,
     with exactly one ``tree_sum_xyzt`` (32 entries a group) and one
     ``finish_check`` launch, its wall and split, and the tree kernel at
     M = 32 against its plain version. Returns the tree's report at M = 32."""
     import torch
 
-    from dag_rider_tpu_torch.ops import comb, cuda_field, cuda_group as CG, field as F
+    from dag_rider_tpu_torch.ops import comb, cuda_field, cuda_group as CG
     from dag_rider_tpu_torch.verifier.cuda import CUDAVerifier, unpack8
 
     flat = [v for rnd in rounds for v in rnd]
@@ -914,11 +1097,10 @@ def comb8_phase(reg, rounds, mask, sample, oracle, imad_per_s: float) -> dict:
     dev = v8.device
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_allocated()
-    t0 = time.perf_counter()
-    tables, b_tab = v8.comb_tables()
-    torch.cuda.synchronize()
-    t_build = time.perf_counter() - t0
-    print(f"8-bit comb: tables built in {t_build:.2f} s; key tables {tuple(tables.shape)} "
+    (tables, b_tab), rec = table_build_gate("8-bit, n = 256", v8, imad_per_s)
+    builds.append(rec)
+    print(f"8-bit comb: tables built in {rec['wall_ms'] / 1e3:.4f} s; key tables "
+          f"{tuple(tables.shape)} "
           f"{tables.numel() * 4} B, base table {tuple(b_tab.shape)} {b_tab.numel() * 4} B; "
           f"device memory +{torch.cuda.memory_allocated() - mem0} B")
 
@@ -927,8 +1109,9 @@ def comb8_phase(reg, rounds, mask, sample, oracle, imad_per_s: float) -> dict:
     cuda_field.reset_launches()
     masks = v8.verify_rounds(rounds)
     torch.cuda.synchronize()
-    launches = {**CG.LAUNCHES, **cuda_field.LAUNCHES}
-    want = {"padd_xx": 0, "tree_sum_xyzt": 1, "finish_check": 1, "pow22523": 0, "field_mul": 0}
+    launches = {**CG.LAUNCHES, **CG.TABLE_LAUNCHES, **cuda_field.LAUNCHES}
+    want = {"padd_xx": 0, "tree_sum_xyzt": 1, "finish_check": 1, "pow22523": 0, "field_mul": 0,
+            **NO_TABLES}
     if launches != want:
         fail(f"8-bit dispatch launched {launches}, want {want}")
     m8 = flat_mask(masks)
@@ -966,9 +1149,8 @@ def comb8_phase(reg, rounds, mask, sample, oracle, imad_per_s: float) -> dict:
     acc = CG.tree_sum_xyzt(entries)
     plain = comb.tree_sum_packed(entries)
     err = int((acc.long() - plain.long()).abs().max().item())
-    d2_nnz = int((F.D2 != 0).sum())
-    b_ms, b_by = bound(4 * (entries.numel() + acc.numel()),
-                       groups * (m - 1) * (8 * IMAD_PER_PRODUCT + 22 * d2_nnz), imad_per_s)
+    b_ms, b_by = bound(4 * (entries.numel() + acc.numel()), groups * (m - 1) * PADD_IMADS,
+                       imad_per_s)
     ms = cuda_ms(lambda: CG.tree_sum_xyzt(entries), 20)
     g_ms = graph_ms(lambda: CG.tree_sum_xyzt(entries), 20)
     plain_ms = cuda_ms(lambda: comb.tree_sum_packed(entries), 2, 1)
@@ -1034,7 +1216,7 @@ def read_launch_counters() -> dict:
     from dag_rider_tpu_torch.ops import cuda_field, cuda_group as CG, cuda_group381 as G
 
     torch.cuda.synchronize()
-    return {**CG.LAUNCHES, **G.LAUNCHES, **cuda_field.LAUNCHES}
+    return {**CG.LAUNCHES, **CG.TABLE_LAUNCHES, **G.LAUNCHES, **cuda_field.LAUNCHES}
 
 
 def timed_cluster(cfg, keys, signers, msm, spent, **sim_kw):
@@ -1091,7 +1273,7 @@ def drive_cluster(cfg, keys, signers, msm, *, verifier=None, cert=False, per_pro
     if cert:
         sim, oracle = timed_cluster(cfg, keys, signers, msm, spent, verifier="device", cert=True)
         cv = sim.cert_verifier
-        sim.processes[0].verifier.comb_tables()  # the build launches padd_xx
+        sim.processes[0].verifier.comb_tables()  # the tables, before the counters go to 0
         for p in sim.processes:
             p.cert_signer.sign_digest = timed(p.cert_signer.sign_digest, spent,
                                               "certificate share signing")
@@ -1106,7 +1288,7 @@ def drive_cluster(cfg, keys, signers, msm, *, verifier=None, cert=False, per_pro
         cv._pairing_check = timed(cv._pairing_check, spent, "certificate pairing checks")
     elif named is not None:
         sim, oracle = timed_cluster(cfg, keys, signers, msm, spent, verifier=named)
-        sim.processes[0].verifier._comb_tables_dev()  # the build launches padd_xx
+        sim.processes[0].verifier._comb_tables_dev()  # the tables, before the counters go to 0
     else:
         sim, oracle = timed_cluster(cfg, keys, signers, msm, spent,
                                     verifier_factory=lambda i: verifier)
@@ -2065,7 +2247,7 @@ def windowed_phase(reg, rounds, mask, sample, oracle, imad_per_s: float):
     t_warm = time.perf_counter() - t0
     launches = read_launch_counters()
     want = {"padd_xx": 80, "tree_sum_xyzt": 0, "finish_check": 0, "pow22523": 1,
-            "field_mul": 0, "padd381_xx": 0, "horner381": 0}
+            "field_mul": 0, "padd381_xx": 0, "horner381": 0, **NO_TABLES}
     if launches != want:
         fail(f"windowed dispatch launched {launches}, want {want}")
     wmask = flat_mask(masks)
@@ -2173,7 +2355,8 @@ def round_step_phase(reg, rounds, mask, imad_per_s: float) -> list:
     launches = read_launch_counters()
     k = mesh.size
     expect = {"padd_xx": 80 * k * len(leaders), "tree_sum_xyzt": 0, "finish_check": 0,
-              "pow22523": k * len(leaders), "field_mul": 0, "padd381_xx": 0, "horner381": 0}
+              "pow22523": k * len(leaders), "field_mul": 0, "padd381_xx": 0, "horner381": 0,
+              **NO_TABLES}
     if launches != expect:
         fail(f"round step launches {launches}, want {expect}")
     print(f"round step ({mesh!r}, quorum {quorum}, round 4's {n} vertices, wave 1 of the verify "
@@ -2249,7 +2432,8 @@ def sharded_verify_phase(ver, rounds, mask) -> None:
             got = pipe.verify_rounds(rounds)
             launches = read_launch_counters()
             want = {"padd_xx": 0, "tree_sum_xyzt": chunks * k, "finish_check": chunks * k,
-                    "pow22523": 0, "field_mul": 0, "padd381_xx": 0, "horner381": 0}
+                    "pow22523": 0, "field_mul": 0, "padd381_xx": 0, "horner381": 0,
+                    **NO_TABLES}
             if flat_mask(got) != mask:
                 fail(f"sharded verify on {name}: masks differ from the merged dispatch's")
             if launches != want:
@@ -2341,8 +2525,10 @@ def sharded_msm_adds(points: int, k: int) -> int:
     return k * (15 + per.bit_length() - 1) + levels
 
 
-def n1024_phase(imad_per_s: float):
-    """BASELINE config #5 at n = 1,024 ("1024-node full-wave MSM"): 4
+def n1024_phase(imad_per_s: float, builds: list):
+    """BASELINE config #5 at n = 1,024 ("1024-node full-wave MSM"): the
+    comb table build (``table_build_gate``, its record appended to
+    ``builds``), 4
     rounds of 1,024 vertices with 683 strong edges (``bench.py:163``), 64
     corrupted, verified by ``ShardedCUDAVerifier`` on ``mesh_from_env()``
     in one merged dispatch; the T = 1,024 MSM of ``bench.py:3734-3744``
@@ -2387,11 +2573,13 @@ def n1024_phase(imad_per_s: float):
     sv = ShardedCUDAVerifier(reg, mesh)
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_allocated()
+    _, rec = table_build_gate("config #5, n = 1,024", sv, imad_per_s)
+    builds.append(rec)
     t0 = time.perf_counter()
-    sv._comb_tables_dev()
+    sv._comb_tables_dev()  # the built tables, one copy a distinct device
     torch.cuda.synchronize()
-    t_tables = time.perf_counter() - t0
-    print(f"  comb tables: built in {t_tables:.2f} s, {sv.table_bytes()} B per distinct device, "
+    t_tables = rec["wall_ms"] / 1e3 + time.perf_counter() - t0
+    print(f"  comb tables: built in {t_tables:.4f} s, {sv.table_bytes()} B per distinct device, "
           f"device memory +{torch.cuda.memory_allocated() - mem0} B")
     t_warm = sv.warmup(total)
     # the MSM's inputs (bench.py:3734-3744) and the certificate's shares
@@ -2427,7 +2615,7 @@ def n1024_phase(imad_per_s: float):
     want = {"padd_xx": 0, "tree_sum_xyzt": k, "finish_check": k, "pow22523": 0, "field_mul": 0,
             "padd381_xx": sharded_msm_adds(MSM_T, sm.n_shards)
             + sharded_msm_adds(quorum, cert_sharded._sharded.n_shards),
-            "horner381": 2}
+            "horner381": 2, **NO_TABLES}
     if launches != want:
         fail(f"config #5: launches {launches}, want {want}")
 
@@ -2630,7 +2818,7 @@ def want_launches(dispatches: int, msm_sizes) -> dict:
     ``msm_sizes`` points: one ``tree_sum_xyzt`` and one ``finish_check`` a
     dispatch, the MSMs' ``padd381_xx``/``horner381``, nothing else."""
     return {"tree_sum_xyzt": dispatches, "finish_check": dispatches, "padd_xx": 0,
-            "pow22523": 0, "field_mul": 0, **msm_launches(msm_sizes)}
+            "pow22523": 0, "field_mul": 0, **NO_TABLES, **msm_launches(msm_sizes)}
 
 
 def check_contained(pipe, what: str) -> None:
@@ -2694,7 +2882,7 @@ def ingest_phase() -> dict:
     reg, seeds = KeyRegistry.generate(n)
     signers = [VertexSigner(s) for s in seeds]
     card_ver = CUDAVerifier(reg)
-    card_ver.comb_tables()  # the build launches padd_xx
+    card_ver.comb_tables()  # the tables, before the counters go to 0
     torch.cuda.synchronize()
     keys_spent = ["admission and batching", "vertex signing", "coin share signing",
                   "coin combine + pairing check"]
@@ -2805,7 +2993,7 @@ def chaos_run(device: bool):
                      verifier="device" if device else "cpu", coin_factory=make)
     ver = sim.processes[0].verifier
     if device:
-        ver.comb_tables()  # the build launches padd_xx
+        ver.comb_tables()  # the tables, before the counters go to 0
     gen = LoadGenerator(clients=2 * n, rate=40_000.0, tx_bytes=32, seed=10, profile="burst")
     drv = ClusterLoadDriver(sim, gen, mcfg=MempoolConfig(cap=512, batch_bytes=512,
                                                          max_batch_txs=64), dt=0.02)
@@ -2884,7 +3072,7 @@ def lane_side(n, seed, adversary, pump, lanes, cycles):
 
     sim = Simulation(cfg, process_factory=factory if behaviors else None, verifier="device")
     ver = sim.processes[0].verifier
-    ver.comb_tables()  # the build launches padd_xx
+    ver.comb_tables()  # the tables, before the counters go to 0
     sim.submit_blocks(2, tx_bytes=600)  # above the 256-byte lane floor
     disp0 = ver.total_dispatches
     reset_launch_counters()
@@ -3041,7 +3229,7 @@ def snapshot_phase() -> dict:
             "device", "device", "cuda", "cuda"):
         fail(f"snapshot: certificate msm {cv.msm!r}, pairing {cv.pair!r} on {cv.device}, "
              f"verifier on {card_ver.device}; want all on the card")
-    card_ver.comb_tables()  # the build launches padd_xx
+    card_ver.comb_tables()  # the tables, before the counters go to 0
     cert_sizes = []
     sum_points = cv._sum_points
 

@@ -18,16 +18,46 @@
 // shifts, masks). One 22x22 product is 484 IMADs plus ~600 carry/fold
 // operations, a point addition 9 products.
 //
-// Per lane (padd_xx_kernel, field_mul_kernel): one thread per lane over
-// limb-major [rows, N] int32, every limb in registers, so device memory
-// sees one read of each operand and one write of the result.
+// A quad an addition (padd_xx_kernel, the comb tree, the table kernels):
+// four threads share each point operation, thread r computing row r of
+// comb.padd_cached's two row-stacked products (quad_padd) or of
+// comb.pdouble_packed's (quad_pdouble), the rows exchanged by shuffles
+// inside the quad. padd_xx first ran a thread a lane with all 176 operand
+// limbs in registers: 239 registers, 8 warps an SM, each lane a chain of
+// ~10,700 dependent integer instructions; on an H100 (700 W) it took
+// 0.48 ms at 262,144 lanes (5.8x its bytes bound), and at narrow widths
+// one lane's latency set its time. The quad holds two rows a
+// thread (at most 128 registers, QUAD_MIN_BLOCKS 4: 16 warps an SM), four
+// times the threads for the same lanes and a third of the chain: 0.23 ms
+// at 262,144 lanes, 0.007-0.008 ms up to 4,096. What bounds it is the
+// SM's int32 rate: a quad issues ~1.5x the instructions of one thread a
+// lane (row 2's 2d product is a branch the other three wait out, every
+// thread forms both of its row's sums, and the shuffles), not its bytes
+// (a lane's 264 ints are one read and one write, staged through the
+// quad's 704 bytes of shared memory). A thread a lane with three field
+// elements parked in shared memory instead of registers (128 registers,
+// 16 warps) issued fewer instructions but hid less latency, and ran
+// slower than the quad at every width. The grid is the blocks the card
+// holds at once, each looping over lanes.
 //
-// The comb tree (tree_sum_xyzt_kernel) sums the 64 gathered entries of
-// every (signature, side) group, 63 additions in 6 levels, in one launch:
-// the gather's own [groups, 64, 88] output goes once into shared memory
-// (22.5 KB a group, two groups a block) and a quad of four threads runs
-// each addition, thread r computing row r of the row-stacked products of
-// comb.padd_cached with the rows exchanged by shuffles inside the quad.
+// field_mul_kernel: one thread per lane over limb-major [22, N] int32,
+// every limb in registers, so device memory sees one read of each operand
+// and one write of the result.
+//
+// The comb key tables (key_bases_kernel, key_entries_kernel,
+// key_entries8_kernel) replace no pallas_call: the JAX package builds them
+// as one jitted jnp scan (comb.build_key_tables, build_key_tables8), once
+// a registry, and the port ran that scan as ~130,000 eager torch ops and
+// 960 padd_xx launches (1.1-1.8 s a build on an H100). A build is now two
+// launches (1.3 ms of kernels at n = 256): the window bases, a quad a key
+// running the key's serial chain of 252 (4-bit) or 248 (8-bit) doublings
+// in registers, which bounds the build (dependent products on a card that
+// has little else to run: 32 to 128 warps at n = 256 to 1,024); then the
+// entries straight into the gather's flat rows, a quad a (key, window)
+// chain of 15 additions (4-bit) or a quad an item of each 8-bit window's
+// 7 levels (evens double the previous level, odds add the base), 16
+// windows a block with a barrier between levels. The same operation
+// sequence as the plain build, so the same limbs.
 //
 // The finish tail (finish_kernel) and its square-root chain
 // (pow22523_kernel) are ~287 and 262 dependent products per signature.
@@ -224,32 +254,6 @@ __device__ __forceinline__ fe canon22(fe x) {
 // Group ops
 // ---------------------------------------------------------------------------
 
-// Packed XYZT -> cached (Y-X, Y+X, 2dT, 2Z), as comb.to_cached.
-__device__ __forceinline__ void to_cached(const fe (&q)[4], fe (&qc)[4]) {
-  const int d2[NL] = D2_LIMBS;
-  qc[0] = sub22(q[1], q[0]);
-  qc[1] = add22(q[1], q[0]);
-  qc[2] = mul22_const(q[3], d2);
-  qc[3] = dbl22(q[2]);
-}
-
-// add-2008-hwcd-3 with q in cached form, as comb.padd_cached.
-__device__ __forceinline__ void padd_core(const fe (&p)[4], const fe (&qc)[4],
-                                          fe (&r)[4]) {
-  fe a = mul22(sub22(p[1], p[0]), qc[0]);
-  fe b = mul22(add22(p[1], p[0]), qc[1]);
-  fe cc = mul22(p[3], qc[2]);
-  fe d = mul22(p[2], qc[3]);
-  fe e = sub22(b, a);
-  fe f = sub22(d, cc);
-  fe g = add22(d, cc);
-  fe h = add22(b, a);
-  r[0] = mul22(e, f);
-  r[1] = mul22(g, h);
-  r[2] = mul22(f, g);
-  r[3] = mul22(e, h);
-}
-
 __device__ __forceinline__ fe load_fe(const int* __restrict__ base, long long ld,
                                       int row0, long long lane) {
   fe x;
@@ -264,37 +268,7 @@ __device__ __forceinline__ void store_fe(int* __restrict__ base, long long ld,
   for (int i = 0; i < NL; i++) base[(row0 + i) * ld + lane] = x.v[i];
 }
 
-// ---------------------------------------------------------------------------
-// Kernels
-// ---------------------------------------------------------------------------
-
-// Replaces pallas_group._padd_xx_kernel: p + q for packed XYZT [88, n]
-// operands (row r = coordinate * 22 + limb), q cached in registers.
-__global__ void __launch_bounds__(128)
-padd_xx_kernel(const int* __restrict__ p, long long ldp, const int* __restrict__ q,
-               long long ldq, int* __restrict__ out, long long ldo, long long n) {
-  long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  fe P[4], Q[4], QC[4], R[4];
-#pragma unroll
-  for (int c = 0; c < 4; c++) {
-    P[c] = load_fe(p, ldp, c * NL, lane);
-    Q[c] = load_fe(q, ldq, c * NL, lane);
-  }
-  to_cached(Q, QC);
-  padd_core(P, QC, R);
-#pragma unroll
-  for (int c = 0; c < 4; c++) store_fe(out, ldo, c * NL, lane, R[c]);
-}
-
-// ---------------------------------------------------------------------------
-// The comb tree in one launch
-// ---------------------------------------------------------------------------
-
-#define PACKED (4 * NL)   // ints per packed XYZT point
-#define TREE_THREADS 128  // 32 quads of four threads, one addition per quad
-#define TREE_GROUPS 2     // (signature, side) groups per block
-#define TREE_MAX_M 64     // entries per group
+#define PACKED (4 * NL)  // ints per packed XYZT point
 
 __device__ __forceinline__ fe load_row(const int* s) {
   fe x;
@@ -303,27 +277,45 @@ __device__ __forceinline__ fe load_row(const int* s) {
   return x;
 }
 
+__device__ __forceinline__ void store_row(int* s, const fe& x) {
+#pragma unroll
+  for (int i = 0; i < NL; i++) s[i] = x.v[i];
+}
+
+// ---------------------------------------------------------------------------
+// A point addition a quad: padd_xx and the comb tree
+// ---------------------------------------------------------------------------
+
+#define QUAD_THREADS 128   // 32 quads a block (padd_xx and the table kernels)
+#define QUAD_MIN_BLOCKS 4  // blocks an SM holds: 16 warps, at most 128 registers
+#define TREE_THREADS 128   // 32 quads of four threads, one addition per quad
+#define TREE_GROUPS 2      // (signature, side) groups per block
+#define TREE_MAX_M 64      // entries per group
+
 // p + q by the four threads of a quad, in place (the sum overwrites p);
 // p and q are packed XYZT points in shared memory. Thread r = 0..3 computes
 // row r of the row-stacked products of comb.padd_cached(p, to_cached(q)):
 // (Y1 - X1, Y1 + X1, T1, Z1) x (Y2 - X2, Y2 + X2, 2d T2, 2 Z2) = (A, B, C, D),
 // then with E = B - A, F = D - C, G = D + C, H = B + A row r of
 // (E F, G H, F G, E H). The quad's lanes are lane0 .. lane0 + 3 of the warp.
+// Every thread forms carry(a +- b) of a pair of p's rows and a pair of q's
+// (Y -+ X; Z + Z in row 3), used or not: the only branch is row 2's 2d
+// product, which the other three threads wait out.
 __device__ __forceinline__ void quad_padd(int* p, const int* q, int r, unsigned mask,
                                           int lane0) {
-  fe lhs, qc;
+  const fe pa = load_row(p + (r < 2 ? 1 : (r == 2 ? 3 : 2)) * NL), pb = load_row(p);
+  const fe qa = load_row(q + (r < 2 ? 1 : 2) * NL), qb = load_row(q + (r < 2 ? 0 : 2) * NL);
+  fe ls, qs;
+#pragma unroll
+  for (int i = 0; i < NL; i++) {
+    ls.v[i] = pa.v[i] + (r == 0 ? -pb.v[i] : pb.v[i]);
+    qs.v[i] = qa.v[i] + (r == 0 ? -qb.v[i] : qb.v[i]);
+  }
+  const fe lhs = r < 2 ? carry2<2>(ls) : pa;
+  fe qc = carry2<2>(qs);
   if (r == 2) {
     const int d2[NL] = D2_LIMBS;
-    lhs = load_row(p + 3 * NL);
     qc = mul22_const(load_row(q + 3 * NL), d2);
-  } else if (r == 3) {
-    lhs = load_row(p + 2 * NL);
-    qc = dbl22(load_row(q + 2 * NL));
-  } else {
-    const fe px = load_row(p), py = load_row(p + NL);
-    const fe qx = load_row(q), qy = load_row(q + NL);
-    lhs = r == 0 ? sub22(py, px) : add22(py, px);
-    qc = r == 0 ? sub22(qy, qx) : add22(qy, qx);
   }
   const fe m = mul22(lhs, qc);
   __syncwarp(mask);  // the quad has read p and q before any row of p is overwritten
@@ -340,6 +332,34 @@ __device__ __forceinline__ void quad_padd(int* p, const int* q, int r, unsigned 
   const fe out = mul22(carry2<2>(u), carry2<2>(v));
 #pragma unroll
   for (int i = 0; i < NL; i++) p[r * NL + i] = out.v[i];
+}
+
+// Replaces pallas_group._padd_xx_kernel: p + q for packed XYZT [88, n]
+// operands (row r = coordinate * 22 + limb), a quad a lane on quad_padd:
+// thread r stages row r of the lane's p and q in the quad's shared memory
+// and writes row r of the sum. The grid is the blocks the card holds at
+// once; lanes beyond it loop.
+__global__ void __launch_bounds__(QUAD_THREADS, QUAD_MIN_BLOCKS)
+padd_xx_kernel(const int* __restrict__ p, long long ldp, const int* __restrict__ q,
+               long long ldq, int* __restrict__ out, long long ldo, long long n) {
+  __shared__ int sm[QUAD_THREADS / 4][2 * PACKED];
+  const int quad = threadIdx.x >> 2, r = threadIdx.x & 3, lane0 = threadIdx.x & 28;
+  const unsigned mask = 0xFu << lane0;
+  int* ps = sm[quad];
+  int* qs = sm[quad] + PACKED;
+  for (long long lane = (long long)blockIdx.x * (QUAD_THREADS / 4) + quad; lane < n;
+       lane += (long long)gridDim.x * (QUAD_THREADS / 4)) {
+#pragma unroll
+    for (int i = 0; i < NL; i++) {
+      ps[r * NL + i] = p[(r * NL + i) * ldp + lane];
+      qs[r * NL + i] = q[(r * NL + i) * ldq + lane];
+    }
+    __syncwarp(mask);  // the quad's rows are staged
+    quad_padd(ps, qs, r, mask, lane0);
+#pragma unroll
+    for (int i = 0; i < NL; i++) out[(r * NL + i) * ldo + lane] = ps[r * NL + i];
+    __syncwarp(mask);  // every row is out before the next lane's come in
+  }
 }
 
 // Replaces the 6 launches of pallas_group._padd_xx_kernel that the comb
@@ -370,6 +390,149 @@ tree_sum_xyzt_kernel(const int* __restrict__ in, int* __restrict__ out, long lon
   }
   for (int i = threadIdx.x; i < ng * PACKED; i += TREE_THREADS)
     out[g0 * PACKED + i] = sm[(i / PACKED) * per + i % PACKED];
+}
+
+// ---------------------------------------------------------------------------
+// The comb key tables: window bases, then entries
+// ---------------------------------------------------------------------------
+
+#define ENTRIES4 16      // entries of a 4-bit window
+#define ENTRIES8 256     // entries of an 8-bit window
+#define ENT8_WINDOWS 16  // 8-bit windows a block builds
+
+// 2p by the four threads of a quad (comb.pdouble_packed): thread r holds
+// row r (X, Y, Z, T) of p and returns row r of 2p. Thread r squares row r
+// of (X, Y, Z, X + Y); the four squares (A, B, C, S) reach every thread by
+// shuffles, and thread r multiplies row r of (E, G, F, E) by row r of (F,
+// H, G, H). Every thread runs the same instructions (the choices are
+// selects), so the rows are those of the plain doubling.
+__device__ __forceinline__ fe quad_pdouble(const fe& row, int r, unsigned mask, int lane0) {
+  fe xy;
+#pragma unroll
+  for (int i = 0; i < NL; i++)
+    xy.v[i] = __shfl_sync(mask, row.v[i], lane0) + __shfl_sync(mask, row.v[i], lane0 + 1);
+  xy = carry2<2>(xy);  // X + Y
+  const fe sq = r == 3 ? xy : row;
+  const fe m = mul22(sq, sq);
+  fe a, b, c, s;
+#pragma unroll
+  for (int i = 0; i < NL; i++) {
+    a.v[i] = __shfl_sync(mask, m.v[i], lane0);
+    b.v[i] = __shfl_sync(mask, m.v[i], lane0 + 1);
+    c.v[i] = __shfl_sync(mask, m.v[i], lane0 + 2);
+    s.v[i] = __shfl_sync(mask, m.v[i], lane0 + 3);
+  }
+  const fe h = add22(a, b), g = sub22(a, b);
+  const fe e = sub22(h, s), f = add22(dbl22(c), g);
+  const fe lhs = r == 1 ? g : (r == 2 ? f : e);
+  const fe rhs = r == 0 ? f : (r == 2 ? g : h);
+  return mul22(lhs, rhs);
+}
+
+// Replaces the window-base chain of comb.build_key_tables (four doublings
+// a window) and build_key_tables8 (eight): bases[key, w] = 2^(dbl w) A_key
+// for w < windows, packed XYZT rows [n, windows, 88]; A_key = (x, y, 1, t)
+// from [n, 22] limbs. A quad a key, the chain of (windows - 1) dbl
+// doublings in registers.
+__global__ void __launch_bounds__(QUAD_THREADS)
+key_bases_kernel(const int* __restrict__ ax, const int* __restrict__ ay,
+                 const int* __restrict__ at, int* __restrict__ bases, long long n,
+                 int windows, int dbl) {
+  const long long key = (long long)blockIdx.x * (QUAD_THREADS / 4) + (threadIdx.x >> 2);
+  if (key >= n) return;  // the whole quad
+  const int r = threadIdx.x & 3, lane0 = threadIdx.x & 28;
+  const unsigned mask = 0xFu << lane0;
+  const int* src = r == 0 ? ax : (r == 1 ? ay : at);
+  fe row;
+#pragma unroll
+  for (int i = 0; i < NL; i++) row.v[i] = r == 2 ? (i == 0) : src[key * NL + i];
+  int* dst = bases + key * windows * PACKED + r * NL;
+#pragma unroll 1
+  for (int w = 0;; w++) {
+    store_row(dst + w * PACKED, row);
+    if (w + 1 == windows) break;
+#pragma unroll 1
+    for (int k = 0; k < dbl; k++) row = quad_pdouble(row, r, mask, lane0);
+  }
+}
+
+// Copy a packed XYZT point row by row: thread r of a quad copies row r.
+__device__ __forceinline__ void quad_copy(int* dst, const int* src, int r) {
+  store_row(dst + r * NL, load_row(src + r * NL));
+}
+
+// Replaces the entry loop of comb.build_key_tables: window chain kw
+// (key * 64 + window) gets TABLE[kw, 0] = the identity and TABLE[kw, d] =
+// TABLE[kw, d - 1] + base into out [chains * 16, 88] (the gather's flat
+// rows), a quad a chain on quad_padd: the running sum and the base stay
+// in the quad's shared memory, thread r writes row r of each entry.
+__global__ void __launch_bounds__(QUAD_THREADS, QUAD_MIN_BLOCKS)
+key_entries_kernel(const int* __restrict__ bases, int* __restrict__ out, long long chains) {
+  __shared__ int sm[QUAD_THREADS / 4][2 * PACKED];
+  const int quad = threadIdx.x >> 2, r = threadIdx.x & 3, lane0 = threadIdx.x & 28;
+  const unsigned mask = 0xFu << lane0;
+  const long long kw = (long long)blockIdx.x * (QUAD_THREADS / 4) + quad;
+  if (kw >= chains) return;  // the whole quad
+  int* acc = sm[quad];
+  int* b = sm[quad] + PACKED;
+  int* e = out + kw * ENTRIES4 * PACKED + r * NL;
+#pragma unroll
+  for (int i = 0; i < NL; i++) acc[r * NL + i] = (i == 0) && (r == 1 || r == 2);  // (0, 1, 1, 0)
+  quad_copy(b, bases + kw * PACKED, r);
+  store_row(e, load_row(acc + r * NL));
+#pragma unroll 1
+  for (int d = 1; d < ENTRIES4; d++) {
+    __syncwarp(mask);  // the quad's rows are in place
+    quad_padd(acc, b, r, mask, lane0);
+    store_row(e + d * PACKED, load_row(acc + r * NL));
+  }
+}
+
+// Replaces the level loop of comb.build_key_tables8: each block builds
+// ENT8_WINDOWS window tables of 256 entries in DIGIT_POS8 block order,
+// position 0 the identity, 1 the base, then level by level (m = 1, 2, ...,
+// 64): positions 2m + j = 2 (position m + j), then 3m + j = (position 2m +
+// j) + base, j < m, a quad an item (quad_pdouble on rows in registers,
+// quad_padd on rows staged in shared memory), a level's items spread over
+// the block's quads. A level reads what other quads of the block wrote to
+// out before the barrier.
+__global__ void __launch_bounds__(QUAD_THREADS, QUAD_MIN_BLOCKS)
+key_entries8_kernel(const int* __restrict__ bases, int* out, long long chains) {
+  __shared__ int sm[QUAD_THREADS / 4][2 * PACKED];
+  const int quad = threadIdx.x >> 2, r = threadIdx.x & 3, lane0 = threadIdx.x & 28;
+  const unsigned mask = 0xFu << lane0;
+  const long long kw0 = (long long)blockIdx.x * ENT8_WINDOWS;
+  const int nw = (int)(chains - kw0 < ENT8_WINDOWS ? chains - kw0 : ENT8_WINDOWS);
+  int* tab0 = out + kw0 * ENTRIES8 * PACKED;
+  for (int k = threadIdx.x; k < nw * 2 * PACKED; k += QUAD_THREADS) {
+    const int w = k / (2 * PACKED), i = k % (2 * PACKED);
+    tab0[w * ENTRIES8 * PACKED + i] =
+        i < PACKED ? (i == NL || i == 2 * NL) : bases[(kw0 + w) * PACKED + i - PACKED];
+  }
+  __syncthreads();
+  int* ev = sm[quad];
+  int* b = sm[quad] + PACKED;
+#pragma unroll 1
+  for (int m = 1; m < ENTRIES8 / 2; m <<= 1) {
+    for (int it = quad; it < nw * m; it += QUAD_THREADS / 4) {
+      int* tab = tab0 + (it / m) * ENTRIES8 * PACKED + r * NL;
+      const int j = it % m;
+      store_row(tab + (2 * m + j) * PACKED,
+                quad_pdouble(load_row(tab + (m + j) * PACKED), r, mask, lane0));
+    }
+    __syncthreads();
+    for (int it = quad; it < nw * m; it += QUAD_THREADS / 4) {
+      const int w = it / m, j = it % m;
+      int* tab = tab0 + w * ENTRIES8 * PACKED;
+      quad_copy(ev, tab + (2 * m + j) * PACKED, r);
+      quad_copy(b, bases + (kw0 + w) * PACKED, r);
+      __syncwarp(mask);  // the quad's rows are staged
+      quad_padd(ev, b, r, mask, lane0);
+      quad_copy(tab + (3 * m + j) * PACKED, ev, r);
+      __syncwarp(mask);  // every row is out before the next item's come in
+    }
+    __syncthreads();
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -745,11 +908,60 @@ static inline unsigned blocks_for(long long n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
 }
 
+// Blocks of padd_xx_kernel the current card holds at once (its SMs times
+// the blocks an SM holds), looked up once a process.
+static long long padd_resident_blocks() {
+  static long long cached = 0;
+  if (cached == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, padd_xx_kernel, QUAD_THREADS, 0);
+    cached = (long long)(sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+  }
+  return cached;
+}
+
 extern "C" int dr_padd_xx(const int* p, long long ldp, const int* q, long long ldq,
                           int* out, long long ldo, long long n, void* stream) {
-  if (n > 0)
-    padd_xx_kernel<<<blocks_for(n, 128), 128, 0, (cudaStream_t)stream>>>(
-        p, ldp, q, ldq, out, ldo, n);
+  if (n > 0) {
+    const long long need = blocks_for(n, QUAD_THREADS / 4), cap = padd_resident_blocks();
+    padd_xx_kernel<<<(unsigned)(need < cap ? need : cap), QUAD_THREADS, 0,
+                     (cudaStream_t)stream>>>(p, ldp, q, ldq, out, ldo, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The comb key tables of n keys (x, y, t: [n, 22] limbs), in two launches:
+// key_bases_kernel into bases [n, windows, 88] (scratch), then the entries
+// into out, [n * 64 * 16, 88] (dr_key_tables) or [n * 32 * 256, 88]
+// (dr_key_tables8).
+static int key_bases(const int* x, const int* y, const int* t, int* bases, long long n,
+                     int windows, int dbl, cudaStream_t s) {
+  key_bases_kernel<<<blocks_for(n, QUAD_THREADS / 4), QUAD_THREADS, 0, s>>>(x, y, t, bases, n,
+                                                                            windows, dbl);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int dr_key_tables(const int* x, const int* y, const int* t, int* bases, int* out,
+                             long long n, void* stream) {
+  if (n <= 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int rc = key_bases(x, y, t, bases, n, 64, 4, s);
+  if (rc != 0) return rc;
+  key_entries_kernel<<<blocks_for(n * 64, QUAD_THREADS / 4), QUAD_THREADS, 0, s>>>(bases, out,
+                                                                                  n * 64);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int dr_key_tables8(const int* x, const int* y, const int* t, int* bases, int* out,
+                              long long n, void* stream) {
+  if (n <= 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int rc = key_bases(x, y, t, bases, n, 32, 8, s);
+  if (rc != 0) return rc;
+  key_entries8_kernel<<<blocks_for(n * 32, ENT8_WINDOWS), QUAD_THREADS, 0, s>>>(bases, out,
+                                                                              n * 32);
   return (int)cudaGetLastError();
 }
 

@@ -15,9 +15,10 @@ table memory.
 Representation: a *packed* point is one int32 tensor [..., 4, 22] with
 rows (X, Y, Z, T); a *cached* entry has rows (Y-X, Y+X, 2dT, 2Z).
 
-On CUDA tensors the tree additions and the tail run in the hand-written
-kernels of :mod:`dag_rider_tpu_torch.ops.cuda_group`; on CPU tensors the
-same wrappers run their plain torch versions. Both give the same limbs.
+On CUDA tensors the table builds, the tree additions and the tail run in
+the hand-written kernels of :mod:`dag_rider_tpu_torch.ops.cuda_group`; on
+CPU tensors the same wrappers run their plain torch versions. Both give
+the same limbs.
 """
 
 from __future__ import annotations
@@ -98,6 +99,38 @@ def from_limb_major(lm: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def window_bases(
+    a_x: torch.Tensor, a_y: torch.Tensor, a_t: torch.Tensor, windows: int, doublings: int
+) -> torch.Tensor:
+    """Packed window bases [n, windows, 4, 22]: base w is 2^(doublings * w)
+    * A_key, A_key = (x, y, 1, t), each the previous base doubled
+    ``doublings`` times (plain torch)."""
+    one = F.const("ONE", a_x.device).expand(a_x.shape[0], F.LIMBS)
+    b = torch.stack([a_x, a_y, one, a_t], dim=-2)  # packed [n, 4, 22]
+    bases = [b]
+    for _ in range(windows - 1):
+        for _ in range(doublings):
+            b = pdouble_packed(b)
+        bases.append(b)
+    return torch.stack(bases, dim=1)
+
+
+def build_key_tables_plain(
+    a_x: torch.Tensor, a_y: torch.Tensor, a_t: torch.Tensor
+) -> torch.Tensor:
+    """Plain version of :func:`build_key_tables`: the window bases, then
+    every window's identity and 15 successive additions of its base b,
+    ``padd_cached(prev, to_cached(b))``, for all windows at once."""
+    bases = window_bases(a_x, a_y, a_t, WINDOWS, 4)  # [n, 64, 4, 22]
+    cached = to_cached(bases)
+    prev = pack_point(curve.identity(bases.shape[:2], a_x.device))
+    entries = [prev]
+    for _ in range(ENTRIES - 1):
+        prev = padd_cached(prev, cached)
+        entries.append(prev)
+    return torch.stack(entries, dim=2)  # [n, 64, 16, 4, 22]
+
+
 def build_key_tables(
     a_x: torch.Tensor, a_y: torch.Tensor, a_t: torch.Tensor
 ) -> torch.Tensor:
@@ -105,32 +138,14 @@ def build_key_tables(
     the keys' device. TABLE[key, w, d] = d * 16^w * A_key.
 
     Window w holds the identity and 15 successive additions of the window
-    base b = 16^w * A; the next base is four doublings of b. Each entry
-    step ``padd_cached(prev, to_cached(b))`` is exactly ``padd_xx(prev,
-    b)``, so it runs through the padd kernel on CUDA; the doublings stay
-    plain torch, as they are plain jnp in the JAX package.
-    """
+    base b = 16^w * A; the next base is four doublings of b. On the card
+    the build is two kernel launches (:func:`cuda_group.key_tables`),
+    written straight into the gather's flat rows; on the CPU it is
+    :func:`build_key_tables_plain`."""
     from dag_rider_tpu_torch.ops import cuda_group
 
     n = a_x.shape[0]
-    one = F.const("ONE", a_x.device).expand(n, F.LIMBS)
-    b = torch.stack([a_x, a_y, one, a_t], dim=-2)  # packed [n, 4, 22]
-    ident = pack_point(curve.identity((n,), a_x.device))
-    ident_lm = to_limb_major(ident)
-    windows = []
-    for _ in range(WINDOWS):
-        b_lm = to_limb_major(b)
-        prev = ident_lm
-        entries = [ident_lm]
-        for _ in range(ENTRIES - 1):
-            prev = cuda_group.padd_xx(prev, b_lm)
-            entries.append(prev)
-        # [16, 88, n] -> [n, 16, 4, 22]
-        windows.append(
-            torch.stack(entries).permute(2, 0, 1).reshape(n, ENTRIES, 4, F.LIMBS)
-        )
-        b = pdouble_packed(pdouble_packed(pdouble_packed(pdouble_packed(b))))
-    return torch.stack(windows, dim=1)  # [n, 64, 16, 4, 22]
+    return cuda_group.key_tables(a_x, a_y, a_t).view(n, WINDOWS, ENTRIES, 4, F.LIMBS)
 
 
 def base_table_xyzt() -> np.ndarray:
@@ -162,6 +177,24 @@ def _digit_pos8() -> np.ndarray:
 DIGIT_POS8 = _digit_pos8()
 
 
+def build_key_tables8_plain(
+    a_x: torch.Tensor, a_y: torch.Tensor, a_t: torch.Tensor
+) -> torch.Tensor:
+    """Plain version of :func:`build_key_tables8`: the window bases, then
+    every window's 7 levels for all windows at once: the evens of a level
+    double the previous level, the odds are ``padd_cached(evens,
+    to_cached(b))``."""
+    bases = window_bases(a_x, a_y, a_t, WINDOWS8, 8)  # [n, 32, 4, 22]
+    cached = to_cached(bases)[:, :, None]
+    prev = bases[:, :, None]  # [n, 32, m, 4, 22]
+    levels = [pack_point(curve.identity(bases.shape[:2], a_x.device))[:, :, None], prev]
+    for _lvl in range(7):
+        evens = pdouble_packed(prev)
+        prev = torch.cat([evens, padd_cached(evens, cached)], dim=2)
+        levels.append(prev)
+    return torch.cat(levels, dim=2)  # [n, 32, 256, 4, 22]
+
+
 def build_key_tables8(
     a_x: torch.Tensor, a_y: torch.Tensor, a_t: torch.Tensor
 ) -> torch.Tensor:
@@ -170,35 +203,14 @@ def build_key_tables8(
     order, see :data:`DIGIT_POS8`).
 
     Each window's 256 entries come in 8 levels: the evens of a level are
-    doubles of the previous level, the odds add the window base b. Each
-    odd step ``padd_cached(evens, to_cached(b))`` is ``padd_xx(evens, b)``,
-    so it runs through the padd kernel on CUDA; the doublings stay plain
-    torch, as they are plain jnp in the JAX package.
-    """
+    doubles of the previous level, the odds add the window base b. On the
+    card the build is two kernel launches (:func:`cuda_group.key_tables8`),
+    written straight into the gather's flat rows; on the CPU it is
+    :func:`build_key_tables8_plain`."""
     from dag_rider_tpu_torch.ops import cuda_group
 
     n = a_x.shape[0]
-    one = F.const("ONE", a_x.device).expand(n, F.LIMBS)
-    b = torch.stack([a_x, a_y, one, a_t], dim=-2)  # packed [n, 4, 22]
-    ident = pack_point(curve.identity((n,), a_x.device))
-    windows = []
-    for _ in range(WINDOWS8):
-        levels = [ident[:, None], b[:, None]]  # positions 0 and 1
-        prev = b[:, None]  # [n, m, 4, 22]
-        for _lvl in range(7):
-            evens = pdouble_packed(prev)
-            m = evens.shape[1]
-            odds = cuda_group.padd_xx(
-                to_limb_major(evens.reshape(n * m, 4, F.LIMBS)),
-                to_limb_major(b.repeat_interleave(m, dim=0)),
-            )
-            lvl = torch.cat([evens, from_limb_major(odds).reshape(n, m, 4, F.LIMBS)], dim=1)
-            levels.append(lvl)
-            prev = lvl
-        windows.append(torch.cat(levels, dim=1))  # [n, 256, 4, 22]
-        for _ in range(8):
-            b = pdouble_packed(b)
-    return torch.stack(windows, dim=1)  # [n, 32, 256, 4, 22]
+    return cuda_group.key_tables8(a_x, a_y, a_t).view(n, WINDOWS8, ENTRIES8, 4, F.LIMBS)
 
 
 # ---------------------------------------------------------------------------

@@ -6,17 +6,30 @@ Replaces ``dag_rider_tpu/ops/pallas_group.py``: ``_padd_xx_kernel``
 ``_pow22523_kernel`` (:func:`pow22523`). The kernels are CUDA C++ for
 sm_90a in ``csrc/ed25519_group.cu``. They are bound by integer
 multiply-adds (a point addition is 9 schoolbook 22x22 products; the finish
-tail ~290). ``padd_xx`` takes one thread per lane over limb-major [rows, N]
-int32 operands and keeps every limb in registers, so device memory sees
-one read of each operand and one write of the result. The tree kernel sums
-each group's 64 entries in shared memory, four threads per addition. The
-finish tail and the square-root chain give each signature (each lane of
-``pow22523``) a half-warp of 16 lanes: lane l holds limbs 2l and 2l + 1,
-and every product, carry and fold is split across the half-warp.
+tail ~290). ``padd_xx`` and the tree give each point addition a quad of
+four threads, thread r computing row r of the two row-stacked products of
+``comb.padd_cached`` with the rows exchanged by shuffles: four times the
+threads of one thread a lane, a quarter of its dependent chain, at most
+128 registers a thread. ``padd_xx`` stages a lane's limb-major [88, N]
+columns through the quad's shared memory, so device memory sees one read
+of each operand and one write of the result; the tree sums each group's
+64 entries in shared memory. The finish tail and the square-root chain
+give each signature (each lane of ``pow22523``) a half-warp of 16 lanes:
+lane l holds limbs 2l and 2l + 1, and every product, carry and fold is
+split across the half-warp.
+
+:func:`key_tables` and :func:`key_tables8` build the comb key tables in
+two launches (the JAX package's ``comb.build_key_tables`` and
+``build_key_tables8`` are jnp scans, no ``pallas_call``; the port ran them
+as ~130,000 eager torch ops and 960 ``padd_xx`` launches a build): the
+window bases, a quad a key down its serial chain of doublings, which
+bounds the build; then every entry, a quad a (key, window) chain of
+additions or a quad an item of an 8-bit window's levels, written straight
+into the gather's flat rows.
 
 Each wrapper takes its plain torch version for a CPU tensor and launches
 its kernel for a CUDA tensor; there is no other path. ``LAUNCHES`` counts
-kernel launches per wrapper.
+kernel launches per wrapper, ``TABLE_LAUNCHES`` those of the table builds.
 """
 
 from __future__ import annotations
@@ -38,6 +51,11 @@ SOURCE = "dag_rider_tpu_torch/csrc/ed25519_group.cu"
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
 LAUNCHES = {"padd_xx": 0, "tree_sum_xyzt": 0, "finish_check": 0, "pow22523": 0}
+#: kernel launches of the comb table builds (a build launches
+#: :data:`TABLE_KERNELS` kernels), kept apart from :data:`LAUNCHES`: a
+#: build runs once per verifier, before the dispatches those count
+TABLE_LAUNCHES = {"key_tables": 0, "key_tables8": 0}
+TABLE_KERNELS = 2  # key_bases_kernel, then the entries kernel
 
 _P, _N = ctypes.c_void_p, ctypes.c_longlong
 _SIGNATURES = {
@@ -46,23 +64,26 @@ _SIGNATURES = {
     "dr_finish_check": [_P, _P, _P, _P, _N, _P],
     "dr_pow22523": [_P, _P, _N, _P],
     "dr_field_mul": [_P, _P, _P, _N, _P],
+    "dr_key_tables": [_P, _P, _P, _P, _P, _N, _P],
+    "dr_key_tables8": [_P, _P, _P, _P, _P, _N, _P],
 }
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, TABLE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 _launch_lock = threading.Lock()
 
 
-def count(launches: dict, name: str) -> None:
-    """Book one launch of ``name`` in a wrapper module's ``launches``, under
-    one lock for all of them: the nodes of one process launch from their
-    own pump threads."""
+def count(launches: dict, name: str, k: int = 1) -> None:
+    """Book ``k`` launches of ``name`` in a wrapper module's ``launches``,
+    under one lock for all of them: the nodes of one process launch from
+    their own pump threads."""
     with _launch_lock:
-        launches[name] += 1
+        launches[name] += k
 
 
 @functools.lru_cache(maxsize=None)
@@ -229,3 +250,59 @@ def pow22523(z: torch.Tensor) -> torch.Tensor:
     launch("dr_pow22523", z.device, z.data_ptr(), out.data_ptr(), n)
     count(LAUNCHES, "pow22523")
     return out
+
+
+# ---------------------------------------------------------------------------
+# comb key tables
+# ---------------------------------------------------------------------------
+
+
+def _check_keys(a_x: torch.Tensor, a_y: torch.Tensor, a_t: torch.Tensor) -> int:
+    n = a_x.shape[0] if a_x.dim() == 2 else -1
+    for t, name in ((a_x, "a_x"), (a_y, "a_y"), (a_t, "a_t")):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: expected int32, got {t.dtype}")
+        if t.dim() != 2 or t.shape != (n, L) or n < 1:
+            raise ValueError(f"{name}: expected shape [n >= 1, {L}] for every key "
+                             f"array, got {tuple(t.shape)}")
+        if t.device != a_x.device or t.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"{name}: the key arrays must share one cpu or cuda "
+                             f"device, got {t.device}")
+    return n
+
+
+def _key_tables(fn_name: str, name: str, windows: int, entries: int, plain,
+                a_x: torch.Tensor, a_y: torch.Tensor, a_t: torch.Tensor) -> torch.Tensor:
+    n = _check_keys(a_x, a_y, a_t)
+    if a_x.device.type == "cpu":
+        return plain(a_x, a_y, a_t).reshape(-1, ROWS)
+    a_x, a_y, a_t = a_x.contiguous(), a_y.contiguous(), a_t.contiguous()
+    bases = torch.empty((n, windows, ROWS), dtype=torch.int32, device=a_x.device)
+    out = torch.empty((n * windows * entries, ROWS), dtype=torch.int32, device=a_x.device)
+    launch(fn_name, a_x.device, a_x.data_ptr(), a_y.data_ptr(), a_t.data_ptr(),
+           bases.data_ptr(), out.data_ptr(), n)
+    count(TABLE_LAUNCHES, name, TABLE_KERNELS)
+    return out
+
+
+def key_tables(a_x: torch.Tensor, a_y: torch.Tensor, a_t: torch.Tensor) -> torch.Tensor:
+    """The 4-bit comb tables of n keys (affine x, y, t = xy as int32 [n, 22]
+    limbs) as the gather's flat rows [n * 64 * 16, 88]: row (key * 64 + w)
+    * 16 + d holds d * 16^w * A_key, packed XYZT.
+
+    On the card: two launches, the 63 x 4 doublings of every key's window
+    bases, then the 15 additions of every (key, window). Plain version:
+    :func:`comb.build_key_tables_plain`."""
+    return _key_tables("dr_key_tables", "key_tables", comb.WINDOWS, comb.ENTRIES,
+                       comb.build_key_tables_plain, a_x, a_y, a_t)
+
+
+def key_tables8(a_x: torch.Tensor, a_y: torch.Tensor, a_t: torch.Tensor) -> torch.Tensor:
+    """The 8-bit comb tables as flat rows [n * 32 * 256, 88]: row (key * 32
+    + w) * 256 + DIGIT_POS8[d] holds d * 256^w * A_key.
+
+    On the card: two launches, the 31 x 8 doublings of every key's window
+    bases, then every window's 7 levels of doublings and additions. Plain
+    version: :func:`comb.build_key_tables8_plain`."""
+    return _key_tables("dr_key_tables8", "key_tables8", comb.WINDOWS8, comb.ENTRIES8,
+                       comb.build_key_tables8_plain, a_x, a_y, a_t)

@@ -5,8 +5,7 @@ The JAX package runs its windowed path (``dag_rider_tpu/ops/curve.py``
 4-bit windows) as one jnp program with no Pallas kernel; it is the
 verifier's differential oracle. Here, on a CPU tensor, :func:`verify` is
 ``curve.verify_core`` itself, limb for limb the JAX twin. On a CUDA tensor
-it runs the same equation through the repo's kernels, as
-``comb.build_key_tables`` does for its table steps:
+it runs the same equation through the repo's kernels:
 
 - every addition is ``cuda_group.padd_xx`` — ``padd_cached(p, to_cached(q))``,
   the same complete add-2008-hwcd-3 group law as ``curve.padd``: the 15

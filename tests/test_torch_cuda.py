@@ -74,6 +74,39 @@ def test_padd_xx_kernel_equals_plain_on_first_tree_level(dev):
     assert torch.equal(got, CG.padd_xx_plain(p, q))
 
 
+@pytest.mark.parametrize("n", [1, 127, 129, 4097])
+def test_padd_xx_kernel_at_ragged_widths_on_column_slices(dev, n):
+    """Widths that leave a block part full, operands that are column
+    slices of one wider tensor (row stride 2n + 3, not n)."""
+    wide = _reduced((2 * n + 3, 4), 20 + n).reshape(-1, 4 * F.LIMBS).t().contiguous().to(dev)
+    p, q = wide[:, 1 : n + 1], wide[:, n + 3 :]
+    assert p.stride(0) == q.stride(0) == 2 * n + 3
+    got = CG.padd_xx(p, q)
+    torch.cuda.synchronize()
+    assert CG.LAUNCHES["padd_xx"] == 1
+    assert got.shape == (4 * F.LIMBS, n) and got.is_contiguous()
+    assert torch.equal(got, CG.padd_xx_plain(p, q))
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_key_table_kernels_equal_plain_build(dev, bits):
+    """A build at n = 5 on the card launches only the two table kernels
+    and gives the plain build's bytes."""
+    reg, _ = KeyRegistry.generate(5)
+    ver = CUDAVerifier(reg, device="cpu")
+    keys = [torch.as_tensor(a) for a in (ver._a_x, ver._a_y, ver._a_t)]
+    build, plain, name = {
+        4: (comb.build_key_tables, comb.build_key_tables_plain, "key_tables"),
+        8: (comb.build_key_tables8, comb.build_key_tables8_plain, "key_tables8"),
+    }[bits]
+    got = build(*(a.to(dev) for a in keys))
+    torch.cuda.synchronize()
+    assert CG.TABLE_LAUNCHES[name] == CG.TABLE_KERNELS
+    assert not any(CG.LAUNCHES.values()), "the build launched a kernel of the verify path"
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), plain(*keys))
+
+
 def test_tree_sum_kernel_equals_plain_tree(dev):
     entries = _reduced((B, 2, 64, 4), 5).to(dev)
     got = CG.tree_sum_xyzt(entries)

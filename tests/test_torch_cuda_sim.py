@@ -73,7 +73,7 @@ def test_card_simulation_equals_host_oracle(dev):
         return bls_msm.msm(scalars, points)
 
     card, card_oracle = _build(keys, "device", card_msm)
-    # the comb tables are built before the run (their build launches padd_xx)
+    # the comb tables are built before the run (two table kernels, not counted here)
     card.processes[0].verifier.comb_tables()
     torch.cuda.synchronize()
     CG.reset_launches()
