@@ -188,27 +188,37 @@ signatures). The script:
    device); I2, ``BASELINE.json`` config #2's committee (n = 16, 4 waves,
    1 tx a vertex) as 16 ``Node``s over gRPC on localhost (Bracha RBC,
    frame auth, ``verifier: "remote"`` to I1's sidecar with the ladder's
-   CPU floor, ``coin_msm: "device"``), run in ``I2_WORKERS`` OS processes:
+   CPU floor, ``coin_msm: "device"``, ``net_batch``: a peer's frames go
+   out once a pump pass as one RPC), run in ``I2_WORKERS`` OS processes:
    every node decides 4 waves, the 16 logs agree by the audit's rule, each
    wave's leader is the host coin's, every row the sidecar answered gets
    the same bit from one ``CPUVerifier`` pass, no frame refused, no ladder
    retry or fallback, launches exactly the sidecar's dispatches and the
    nodes' ``ShardedMSM`` plans; then, with the server stopped, a
-   ``RemoteVerifier`` fails closed; I3, the cluster harness as
-   ``scripts/cluster.py --n 4 --seconds 6 --rate 300 --kill auto`` runs
-   the reference's: 4 OS processes of ``python -m
+   ``RemoteVerifier`` fails closed; I3, the port's cluster command
+   ``python -m dag_rider_tpu_torch.scripts.cluster --n 4 --seconds 6
+   --rate 300 --kill auto`` as a subprocess: 4 OS processes of ``python -m
    dag_rider_tpu_torch.cluster.runner`` over UDS, wire-level load, one
-   seeded kill -9 and a rejoin from checkpoint, then ``audit_cluster``:
-   agreement, no lost or duplicated transaction, liveness, no flight
-   dump (CPU verifiers in the runners' own processes: no launch, and no
-   entry in the ``{"kernels"}`` line);
-17. prints ``{"device_programs": [...]}`` (the pairing's, the ladder's, the
+   seeded kill -9 and a rejoin from checkpoint, then ``audit_cluster``,
+   read from its exit code and the audit JSON it prints: agreement, no
+   lost or duplicated transaction, liveness, no flight dump (CPU verifiers
+   in the runners' own processes: no launch, and no entry in the
+   ``{"kernels"}`` line);
+17. the driver entry points (phase J, after phase I): J1, the flagship
+   step of ``dag_rider_tpu_torch.graft_entry.entry()`` on the card, its
+   mask equal to ``CPUVerifier``'s and to ``fn`` over CPU copies of its
+   arguments, one ``tree_sum_xyzt`` and one ``finish_check`` launch; J2,
+   ``dryrun_multichip(8, mesh=virtual_mesh(8))``, its four paths passing
+   with exact launches; J3, ``python -m dag_rider_tpu_torch.graft_entry
+   --mesh virtual`` exiting 0 with both OK lines;
+18. prints ``{"device_programs": [...]}`` (the pairing's, the ladder's, the
    windowed program's, ``wave_commit_votes``' and the sharded MSM's times
    and bounds), ``{"kernels": [...]}`` (with each kernel's
    ``consensus_launches``, ``consensus_cert_launches``,
    ``windowed_launches``, ``n1024_launches``, ``sharded_launches``,
    ``host_layer_launches`` per phase A-F, ``ladder_launches`` per run of
-   phase G and ``networked_launches`` for I1 and I2; the tree's row
+   phase G, ``networked_launches`` for I1 and I2 and ``entry_launches``
+   for J1 and J2; the tree's row
    carries its M = 32 reading under ``at_m32``, ``padd_xx``'s its widths;
    the ``key_tables`` and ``key_tables8`` rows each build of their width;
    every row its kernels' ptxas registers and spills), the card line again, and
@@ -317,12 +327,19 @@ I2_BLOCKS = 40  # one-transaction blocks each node submits: one a vertex past wa
 # sync_patience key carries it (the cluster harness raises cert_patience for
 # the same reason).
 I2_SYNC_PATIENCE = 5000
-I3_N = 4  # scripts/cluster.py --n 4 --seconds 6 --rate 300 --kill auto
+# The node config's "net_batch": each node ships its frames to a peer once
+# a pump pass as one DeliverMany RPC. One Python gRPC call a frame (7,920
+# a round) kept the card machine's 8 cores busy at ~4.5 s a round; some
+# nodes then stayed behind for good, their vertices missing the next
+# round's strong edges, and a wave whose leader one of them was got
+# skipped: three in a row (waves 4-6) left a run at 3 waves after 120 s.
+I2_NET_BATCH = True
+I3_N = 4  # python -m dag_rider_tpu_torch.scripts.cluster --n 4 --seconds 6 --rate 300 --kill auto
 I3_LOAD_S = 6.0
 I3_RATE = 300.0
-I3_SEED = 7  # scripts/cluster.py's --seed default
-I3_SETTLE_S = 1.5  # scripts/cluster.py's --settle default
-I3_BOOT_S = 60.0  # a runner's boot (its torch import) on a loaded host
+I3_BOOT_S = 60.0  # --boot-timeout: a runner's boot (its torch import) on a loaded host
+J_MESH = 8  # phase J: the dry run's mesh (the reference's dryrun_multichip(8)), virtual
+J_BUDGET_S = 30.0  # phase J's wall budget (printed beside its wall)
 
 # Published H100 SXM peak memory rate (NVIDIA data sheet), used for the
 # byte side of each kernel's bound.
@@ -855,6 +872,7 @@ def main() -> int:
     host_layer = host_layer_phases()
     checkers_phase()
     networked = networked_phases(ver, rounds, mask, seeds)
+    entry = entry_phase()
     for row in report:
         name = row["name"]
         row["consensus_launches"] = ref["launches"].get(name, 0)
@@ -865,6 +883,7 @@ def main() -> int:
         row["host_layer_launches"] = {k: v.get(name, 0) for k, v in host_layer.items()}
         row["ladder_launches"] = {k: v.get(name, 0) for k, v in ladder_launches.items()}
         row["networked_launches"] = {k: v.get(name, 0) for k, v in networked.items()}
+        row["entry_launches"] = {k: v.get(name, 0) for k, v in entry.items()}
 
     for rec in builds:  # the table kernels: one row a width, each build listed
         row = next((r for r in report if r["name"] == rec["name"]), None)
@@ -878,6 +897,7 @@ def main() -> int:
             }
             report.append(row)
         row["builds"].append(rec)
+        row["entry_launches"] = {k: v.get(rec["name"], 0) for k, v in entry.items()}
     ptxas = {stem: ptxas_kernels(stem) for stem in ("ed25519_group", "bls381_group")}
     for row in report:
         row["ptxas"] = {f: ptxas[stem].get(f) for stem, f in KERNEL_FUNCS[row["name"]]}
@@ -3977,7 +3997,9 @@ def sockets_phase(server, backend, seeds) -> dict:
     16 ``Node``s, each on its own ``127.0.0.1`` port, Bracha RBC and frame
     auth on, ``verifier: "remote"`` to I1's sidecar with ``verify_fallback:
     "cpu"`` (the ladder), ``coin: "threshold_bls"`` with ``coin_msm:
-    "device"``, ``propose_empty``, one one-transaction block a vertex. The
+    "device"``, ``propose_empty``, ``net_batch`` (each node's frames to a
+    peer go out once a pump pass as one RPC), one one-transaction block a
+    vertex. The
     Ed25519 identities are the first 16 of the verify phase's registry,
     which the sidecar holds. The nodes run in ``I2_WORKERS`` OS processes
     (one process is held to ~800 gRPC sends a second by its interpreter
@@ -4020,7 +4042,7 @@ def sockets_phase(server, backend, seeds) -> dict:
              "verifier": "remote", "verifier_address": server.address,
              "verifier_timeout_s": 60.0, "verify_fallback": "cpu",
              "coin": "threshold_bls", "coin_msm": "device", "propose_empty": True,
-             "sync_patience": I2_SYNC_PATIENCE}
+             "sync_patience": I2_SYNC_PATIENCE, "net_batch": I2_NET_BATCH}
             for i in range(n)]
     ctx = mp.get_context("spawn")
     waves, rounds = ctx.Array("i", n), ctx.Array("i", n)
@@ -4148,7 +4170,7 @@ def sockets_phase(server, backend, seeds) -> dict:
     print(f"  sidecar: {dispatches} dispatches, {(backend.rows - sent0) / dispatches:.1f} rows "
           f"a dispatch, {backend.busy_s - busy0:.2f} s in its backend; the nodes' verify seam "
           f"(the RPC wall) {sum(nd['verify_s'] for nd in nodes):.2f} s summed over {n} nodes; "
-          f"{len(msms)} coin MSMs of {sorted({p for p, _ in msms})} points; net sends "
+          f"{len(msms)} coin MSMs of {sorted({p for p, _ in msms})} points; net RPCs "
           f"{sum(nd['counters'].get('net_sends', 0) for nd in nodes)}, auth rejects 0, ladder "
           f"retries and fallbacks 0; launches {total}; the card busy {busy}")
     return total
@@ -4183,63 +4205,53 @@ def fail_closed_check(server, rounds) -> None:
 
 
 def cluster_phase() -> None:
-    """I3: the port's cluster harness as ``scripts/cluster.py --n 4 --seconds 6
-    --rate 300 --kill auto`` runs the reference's (``run_cluster``): 4 OS
-    processes of ``python -m dag_rider_tpu_torch.cluster.runner`` over UDS
-    (``verifier: "cpu"``, as ``build_cluster`` writes them), ``drive_load``
-    at 300 tx/s for 6 s, one seeded kill -9 and the rejoin from checkpoint,
-    then ``audit_cluster``: agreement, no lost or duplicated transaction,
-    liveness, no flight-recorder dump. The runners are processes of their
-    own with CPU verifiers: the phase's output is its audit, not a launch
-    count."""
-    import shutil
-    import tempfile
-    import threading
-
-    from dag_rider_tpu_torch.cluster import audit as caudit, client
-    from dag_rider_tpu_torch.cluster.directory import build_cluster
-    from dag_rider_tpu_torch.cluster.supervisor import ClusterSupervisor, seeded_kill_plan
-
+    """I3: the port's cluster command, ``python -m
+    dag_rider_tpu_torch.scripts.cluster --n 4 --seconds 6 --rate 300 --kill
+    auto`` (the copy of ``scripts/cluster.py``), as a subprocess with a
+    60 s boot window: 4 OS processes of ``python -m
+    dag_rider_tpu_torch.cluster.runner`` over UDS (``verifier: "cpu"``, as
+    ``build_cluster`` writes them), wire-level load at 300 tx/s for 6 s, one
+    seeded kill -9 and the rejoin from checkpoint, then ``audit_cluster``.
+    The gates read the command's exit code and the audit JSON it prints:
+    agreement, no lost or duplicated transaction, liveness, no
+    flight-recorder dump, the kill and the restart executed, no runner
+    SIGKILLed at stop. The runners are processes of their own with CPU
+    verifiers: the phase's output is its audit, not a launch count."""
     t_phase = time.perf_counter()
-    root = tempfile.mkdtemp(prefix="dagrider-i3-")
-    if len(os.path.join(root, "sock", "node0.sock")) > 100:
-        fail(f"I3: the workspace {root} is too deep for a UDS path")
-    spec = build_cluster(root, I3_N, transport="uds", seed=I3_SEED)
+    cmd = [sys.executable, "-m", "dag_rider_tpu_torch.scripts.cluster", "--n", str(I3_N),
+           "--seconds", f"{I3_LOAD_S:g}", "--rate", f"{I3_RATE:g}", "--kill", "auto",
+           "--boot-timeout", f"{I3_BOOT_S:g}"]
     # the runners import this checkout's package, wherever they start
     path = os.pathsep.join(p for p in (ROOT, os.environ.get("PYTHONPATH")) if p)
-    sup = ClusterSupervisor(spec, env={"PYTHONPATH": path})
-    load = {}
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": path})
     try:
-        sup.start_all()
-        not_ready = sup.wait_ready(I3_BOOT_S)
-        if not_ready:
-            fail(f"I3: runners {not_ready} did not boot in {I3_BOOT_S:.0f} s")
-        boot = time.perf_counter() - t_phase
-        loader = threading.Thread(target=lambda: load.update(client.drive_load(
-            spec, duration_s=I3_LOAD_S, rate=I3_RATE, seed=I3_SEED)), daemon=True)
-        loader.start()
-        executed = sup.run_plan(seeded_kill_plan(I3_SEED, I3_N, kill_at_s=2.0,
-                                                 restart_after_s=1.5))
-        loader.join(timeout=I3_LOAD_S + 30.0)
-        if any(ev["action"] == "restart" for ev in executed):
-            sup.wait_ready(I3_BOOT_S)
-        time.sleep(I3_SETTLE_S)
-    finally:
-        forced = sup.stop_all()
-    report = caudit.audit_cluster(spec, restarted=sup.restart_counts.keys())
-    shutil.rmtree(root, ignore_errors=True)
+        report = json.loads(proc.stdout)
+    except ValueError:
+        report = None
+    if proc.returncode != 0 or report is None:
+        fail(f"I3: {' '.join(cmd[1:])} exited {proc.returncode}: "
+             f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
     if not report["ok"] or report["lost_tx"] or report["duplicate_tx"] or report[
             "flight_dump_files"] or not report["decided_waves"]:
-        fail(f"I3: audit {json.dumps(report, default=repr)[:3000]}")
-    if len(executed) != 2 or dict(sup.kill_counts) == {} or not load.get("accepted"):
-        fail(f"I3: fault plan {executed}, kills {sup.kill_counts}, load {load}")
-    if forced:
-        fail(f"I3: runners SIGKILLed at stop {forced}")
+        fail(f"I3: audit {json.dumps(report, default=repr)[:3000]}; stderr "
+             f"{proc.stderr[-2000:]}")
+    # the load gate reads the audit's ledger of acknowledged transactions: the
+    # command joins its loader for --seconds + 30 s only, and at 300 tx/s of
+    # ~10-20 ms submit RPCs its backlog can outlast that (its "load" is then {})
+    executed, load = report["fault_plan"], report["load"]
+    if [ev["action"] for ev in executed] != ["kill", "restart"] or not report["kills"] or \
+            not report["accepted_tx"]:
+        fail(f"I3: fault plan {executed}, kills {report['kills']}, {report['accepted_tx']} "
+             f"accepted, load {load}; stderr {proc.stderr[-2000:]}")
+    if report["forced_stops"]:
+        fail(f"I3: runners SIGKILLed at stop {report['forced_stops']}")
     victim = executed[0]["node"]
-    print(f"phase I3, the cluster harness (n {I3_N} OS processes over UDS, {I3_RATE:.0f} tx/s "
-          f"for {I3_LOAD_S:.0f} s, kill -9 of node {victim} at "
-          f"{executed[0]['t']:.1f} s, restart at {executed[1]['t']:.1f} s): boot "
-          f"{boot:.2f} s; {load['accepted']} accepted of {load.get('offered')}, "
+    print(f"phase I3, the cluster command ({' '.join(cmd[2:])}: n {I3_N} OS processes over "
+          f"UDS, {I3_RATE:.0f} tx/s for {I3_LOAD_S:.0f} s, kill -9 of node {victim} at "
+          f"{executed[0]['t']:.1f} s, restart at {executed[1]['t']:.1f} s): exit 0; "
+          f"{report['accepted_tx']} accepted (the loader's count {load.get('accepted')} of "
+          f"{load.get('offered')} offered; none when it outlasts its join), "
           f"{report['delivered_tx']} delivered, 0 lost, 0 duplicated, in flight "
           f"{report['in_flight_tx']}; submit->deliver p50 {report['submit_deliver_p50_ms']} "
           f"ms; decided waves {report['decided_waves']}; rejoined {report.get('rejoined')}; "
@@ -4275,6 +4287,98 @@ def networked_phases(ver, rounds, mask, seeds) -> dict:
     cluster_phase()
     print(f"phase I3 wall: {time.perf_counter() - t:.2f} s")
     print(f"phase I wall: {time.perf_counter() - t_phase:.2f} s")
+    return out
+
+
+# -- phase J: the driver entry points (graft_entry)
+
+
+def entry_phase() -> dict:
+    """Phase J: the port's twin of ``__graft_entry__.py``. J1, the flagship
+    step: ``graft_entry.entry()`` on the card (its table build launches
+    exactly ``key_tables``' two kernels), then ``fn(*args)`` with the
+    counters at 0: its mask equals ``CPUVerifier``'s over the same vertices
+    (8 accepted, 8 padded rows rejected) and ``fn`` over CPU copies of the
+    arguments (the plain versions), with exactly one ``tree_sum_xyzt``, one
+    ``finish_check`` and no table launch. J2, ``dryrun_multichip(8,
+    mesh=virtual_mesh(8))``: its four paths pass (round step, ``ShardedMSM``,
+    sharded comb, the pipeline over it), launching the windowed walk, both
+    BLS kernels and the comb kernels, each exactly (32 tree and finish
+    launches: four sharded dispatches of 8 shards). J3, ``python -m
+    dag_rider_tpu_torch.graft_entry --mesh virtual`` as a subprocess: exit 0
+    and both OK lines. Returns the launches of J1 and J2."""
+    import torch
+
+    from dag_rider_tpu_torch import graft_entry
+    from dag_rider_tpu_torch.parallel.mesh import virtual_mesh
+    from dag_rider_tpu_torch.verifier.cpu import CPUVerifier
+
+    t_phase = time.perf_counter()
+    out = {}
+    reset_launch_counters()
+    t0 = time.perf_counter()
+    fn, args = graft_entry.entry()
+    torch.cuda.synchronize()
+    t_entry = time.perf_counter() - t0
+    built = read_launch_counters()
+    if built != {**{k: 0 for k in built}, "key_tables": 2}:
+        fail(f"J1: entry()'s table build launched {built}")
+    if not all(a.is_cuda for a in args) or fn.__name__ != "device_verify_comb":
+        fail(f"J1: entry() gave {fn.__name__} over {[str(a.device) for a in args]}")
+    ver, _, vs = graft_entry.example_batch(comb=True, device="cpu")
+    oracle = CPUVerifier(ver.registry).verify_batch(vs)
+    oracle += [False] * (args[0].shape[0] - len(oracle))
+    reset_launch_counters()
+    t0 = time.perf_counter()
+    mask = fn(*args)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    out["J1"] = launches = read_launch_counters()
+    plain = fn(*(a.cpu() for a in args))
+    got = mask.cpu().tolist()
+    if not (got == plain.tolist() == oracle == [True] * 8 + [False] * 8):
+        fail(f"J1: the flagship step's mask {got}, plain {plain.tolist()}, oracle {oracle}")
+    want = {**{k: 0 for k in launches}, "tree_sum_xyzt": 1, "finish_check": 1}
+    if launches != want:
+        fail(f"J1: the flagship step launched {launches}, not {want}")
+    print(f"phase J1, the flagship step (graft_entry.entry(), 16 rows of 4 keys): entry() "
+          f"{t_entry:.3f} s (its table build 2 launches), fn(*args) {step_ms:.3f} ms to a "
+          f"synchronised card; mask = plain = CPUVerifier (8 accepted, 8 padding rejected); "
+          f"launches {launches}")
+    reset_launch_counters()
+    t0 = time.perf_counter()
+    rec = graft_entry.dryrun_multichip(J_MESH, mesh=virtual_mesh(J_MESH))
+    torch.cuda.synchronize()
+    t_dry = time.perf_counter() - t0
+    out["J2"] = dry = read_launch_counters()
+    # the round step: a windowed verify a shard, 80 padd_xx and one pow22523 each (one
+    # padd_xx more where the walk's step graph is captured at this width); the MSM:
+    # sharded_msm_adds and one horner381; the sharded comb: one table build and four
+    # dispatches (verify_batch, warmup, dispatch_batch, the pipeline) of J_MESH shards
+    want = {**{k: 0 for k in dry}, "tree_sum_xyzt": 4 * J_MESH, "finish_check": 4 * J_MESH,
+            "key_tables": 2, "padd381_xx": sharded_msm_adds(J_MESH, J_MESH), "horner381": 1,
+            "pow22523": J_MESH, "padd_xx": dry["padd_xx"]}
+    if dry != want or dry["padd_xx"] not in (80 * J_MESH, 80 * J_MESH + 1):
+        fail(f"J2: the dry run launched {dry}, not {want} with {80 * J_MESH} padd_xx "
+             f"(+1 at a new walk width)")
+    if not rec["mesh"].startswith("virtual Mesh(batch: cuda"):
+        fail(f"J2: the dry run ran on {rec['mesh']}")
+    print(f"phase J2, dryrun_multichip({J_MESH}, mesh=virtual_mesh({J_MESH})): four paths "
+          f"passed (accepted {int(rec['accept'].sum())}, commit {rec['commit']}, MSM of "
+          f"{rec['msm_points']} = host, comb and pipeline masks {sum(rec['comb_mask'])}/"
+          f"{len(rec['comb_mask'])}, {rec['async_shards']} shards of {rec['shard_batch']}) "
+          f"in {t_dry:.2f} s; launches {dry}")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "dag_rider_tpu_torch.graft_entry", "--mesh",
+                           "virtual"], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or "entry OK: 8" not in lines or not any(
+            ln.startswith("dryrun_multichip OK: mesh=virtual Mesh(") for ln in lines):
+        fail(f"J3: python -m dag_rider_tpu_torch.graft_entry --mesh virtual exited "
+             f"{proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    print(f"phase J3, python -m dag_rider_tpu_torch.graft_entry --mesh virtual: exit 0 in "
+          f"{time.perf_counter() - t0:.2f} s; {' | '.join(lines)}")
+    print(f"phase J wall: {time.perf_counter() - t_phase:.2f} s (budget {J_BUDGET_S:.0f} s)")
     return out
 
 

@@ -17,16 +17,20 @@ the Python port's equivalent, specialized to THIS repo's seams:
                     byte-identity test assumes)
 - ``metrics``     — every counter bumped is registered in
                     utils/metrics.KNOWN_COUNTERS
+- ``jitpure``     — no Python side effects inside CUDA-graph-captured
+                    regions of ops/ and parallel/ (the reference's
+                    jitted functions)
 - ``races``       — a runtime harness: lock-order cycle detection +
                     guarded-field / serialized-method enforcement,
                     driven by the existing chaos/fuzz suites under
                     DAGRIDER_RACE=1
 
 Run the static suite with ``python -m dag_rider_tpu_torch.analysis``; it
-scans ``dag_rider_tpu_torch/`` and ``chip_smoke.py``. The reference's
-``jitpure`` and ``shapes`` (``jax.jit`` bodies) are not ported: see
-``core.UNPORTED``. Every checker is proven non-vacuous by the planted
-violations of tests/test_torch_analysis.py, run through both packages.
+scans ``dag_rider_tpu_torch/`` and ``chip_smoke.py``. ``jitpure`` and
+``shapes`` check what a CUDA graph captures where the reference's check
+``jax.jit`` bodies. Every checker is proven non-vacuous by the planted
+violations of tests/test_torch_analysis.py: the reference's run through
+both packages, and the port's own for the two capture checkers.
 """
 
 from dag_rider_tpu_torch.analysis.core import Allow, Finding, discover, run_static

@@ -22,7 +22,7 @@ import subprocess
 import sys
 import time
 
-from dag_rider_tpu_torch.analysis.core import UNPORTED, run_static
+from dag_rider_tpu_torch.analysis.core import run_static
 
 #: modules where mypy findings gate (pyproject [[tool.mypy.overrides]]
 #: pins the strictness for exactly this list)
@@ -94,7 +94,6 @@ def main(argv=None) -> int:
     kept, suppressed, unused = run_static(root)
     elapsed = time.monotonic() - t0
     print(f"driderlint over {root} ({elapsed:.2f}s)")
-    print(f"  {UNPORTED}")
     for f in suppressed:
         print(f"  allowed  {f}")
     for f in kept:

@@ -23,13 +23,6 @@ from typing import List, Optional, Sequence, Set, Tuple
 #: (relpath-with-forward-slashes, parsed tree, source text)
 SourceFile = Tuple[str, ast.Module, str]
 
-#: the reference's checkers this package leaves out, and why
-UNPORTED = (
-    "jitpure and shapes are not ported: they check jax.jit bodies, and the port "
-    "has none; their analogs for CUDA-graph-captured regions are ROADMAP "
-    "Queue 1 item 6"
-)
-
 
 @dataclasses.dataclass(frozen=True)
 class Finding:
@@ -119,32 +112,34 @@ def run_static(
     """Run every static checker over the tree and apply the allowlist.
 
     Returns (kept, suppressed, unused_allows); a clean tree is
-    ``([], suppressed, [])``. ``jitpure`` and ``shapes`` (checks of
-    ``jax.jit`` bodies) are not ported: the port has no ``jax.jit``, and
-    their CUDA-graph analogs are queued (:data:`UNPORTED`).
+    ``([], suppressed, [])``. ``jitpure`` and ``shapes`` check the port's
+    CUDA-graph-captured regions where the reference's check ``jax.jit``
+    bodies.
     """
     from dag_rider_tpu_torch.analysis import (
         allowlist,
         determinism,
         events,
         flow,
+        jitpure,
         knobs,
         ladder,
         locks,
         metricsreg,
         oracle,
         release,
+        shapes,
     )
 
     if files is None:
         files = discover(repo_root)
     findings: List[Finding] = []
-    for checker in (knobs, determinism, oracle, metricsreg, events):
+    for checker in (knobs, determinism, oracle, jitpure, metricsreg, events):
         findings.extend(checker.run(files, repo_root))
     # v2 interprocedural checkers share ONE flow-graph build (the graph
     # is the expensive half of their runtime)
     graph = flow.build(files)
-    for checker in (locks, release, ladder):
+    for checker in (locks, release, shapes, ladder):
         findings.extend(checker.run(files, repo_root, graph=graph))
     bad_allows = [a for a in allowlist.ALLOWS if not a.reason.strip()]
     kept, suppressed, unused = apply_allowlist(findings, allowlist.ALLOWS)

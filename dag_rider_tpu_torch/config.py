@@ -715,3 +715,11 @@ class MempoolConfig:
                 )
             base.update(d)
         return cls(**base)
+
+
+def env_set(name: str, value: str) -> None:
+    """Set a registered knob in this process's environment, for what the
+    process builds after the call (a command that forces a knob on for
+    itself); an unregistered name raises ``KeyError``, as a read does."""
+    _raw(name)
+    os.environ[name] = value

@@ -49,6 +49,10 @@ Config (JSON):
                                    // re-serve a round (anti-entropy);
                                    // raise it for a committee over real
                                    // sockets
+  "net_batch": false,              // true: queue each peer's frames and
+                                   // ship them once a pump pass as one
+                                   // DeliverMany RPC (GrpcTransport's
+                                   // batch mode); false: one RPC a frame
 
   "checkpoint_dir": "ckpt/node0",  // optional, periodic + on shutdown
   "checkpoint_every_s": 30,
@@ -91,6 +95,10 @@ from dag_rider_tpu_torch.transport.rbc import RbcTransport
 from dag_rider_tpu_torch.utils import checkpoint
 from dag_rider_tpu_torch.utils.slog import EventLog, NOOP, stdlib_sink
 from dag_rider_tpu_torch.verifier.base import KeyRegistry, VertexSigner
+
+#: the largest DeliverMany RPC a node sends with "net_batch" on; gRPC's
+#: default receive limit is 4 MiB
+NET_BATCH_BYTES = 1 << 20
 
 
 # ----------------------------------------------------------------------
@@ -303,6 +311,7 @@ class Node:
             ),
             send_fault=send_fault,
             log=self.log,
+            batch_bytes=NET_BATCH_BYTES if cfg.get("net_batch") else 0,
         )
         transport = self.net
         if cfg.get("rbc", True):
@@ -726,6 +735,7 @@ class Node:
             self._state_transfer()
         moved = self.net.pump(256)
         self.process.step()
+        self.net.flush()
         if not moved:
             time.sleep(0.002)
 

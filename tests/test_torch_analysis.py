@@ -16,9 +16,14 @@ the ASTs). Here:
   port's package only, and one threaded recipe (the prep engine's gauges
   and the ladder's probe thread) runs under it with every lock site it
   sees known to the static lock graph;
-- the port's tree is clean: ``run_static`` keeps nothing and has no stale
-  allow, the allowlist has no entry for the package, and the runner exits
-  0, prints ``clean`` and names the checkers it does not port.
+- the port's own ``jitpure`` and ``shapes`` (the capture checkers: what a
+  CUDA graph captures, where the reference's check ``jax.jit`` bodies)
+  flag every planted class in a captured region, pass the clean idioms,
+  and find the tree's three capture sites;
+- the port's tree is clean: ``run_static`` runs every checker the
+  reference runs, keeps nothing and has no stale allow, the allowlist has
+  no entry for the package, and the runner exits 0, prints ``clean`` and
+  names no checker as unported.
 
 The reference's harness and the port's both patch ``threading.Lock``, so
 they are never installed in one process together: the port's fixture takes
@@ -56,12 +61,14 @@ from dag_rider_tpu_torch.analysis import (
     determinism as pdeterminism,
     events as pevents,
     flow as pflow,
+    jitpure as pjitpure,
     knobs as pknobs,
     ladder as pladder,
     locks as plocks,
     metricsreg as pmetricsreg,
     oracle as poracle,
     release as prelease,
+    shapes as pshapes,
 )
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -73,8 +80,9 @@ CHECKERS = {
     rrelease: prelease, rladder: pladder,
 }
 
-#: the reference's planted tests that exercise a checker this package does
-#: not port (jitpure, shapes) or no checker at all (a runtime accessor)
+#: the reference's planted tests of jitpure and shapes (checks of jax.jit
+#: bodies; the port's own, for CUDA graph captures, are planted below) and
+#: of no checker at all (a runtime accessor)
 NOT_PLANTED = ("test_jitpure_", "test_shapes_", "test_knob_accessors_reject")
 
 
@@ -237,8 +245,9 @@ def test_port_tree_is_clean(tree):
 
 
 def test_run_static_leaves_out_only_the_unported_checkers(monkeypatch):
-    """The port's run_static runs the reference's checkers but jitpure and
-    shapes (checks of jax.jit bodies, which the port has none of)."""
+    """Nothing is left out: the port's run_static runs every checker the
+    reference's runs, jitpure and shapes (the capture checkers) included,
+    in the same order."""
     from dag_rider_tpu.analysis import jitpure, shapes
 
     def names(core_mod, mods):
@@ -246,22 +255,200 @@ def test_run_static_leaves_out_only_the_unported_checkers(monkeypatch):
         for m in mods:
             monkeypatch.setattr(m, "run", lambda *a, _n=m.CHECKER, **k: called.append(_n) or [])
         core_mod.run_static(REPO, files=[])
-        return set(called)
+        return called
 
     ref = names(rcore, list(CHECKERS) + [jitpure, shapes])
-    port = names(pcore, list(CHECKERS.values()))
-    assert ref - port == {jitpure.CHECKER, shapes.CHECKER} and port <= ref
+    port = names(pcore, list(CHECKERS.values()) + [pjitpure, pshapes])
+    assert port == ref and len(ref) == 10
+    assert not hasattr(pcore, "UNPORTED")
 
 
 def test_runner_exits_zero_prints_clean_and_names_the_unported(capsys):
+    """The runner reports the tree clean and names no checker as
+    unported."""
     from dag_rider_tpu_torch.analysis.__main__ import main
 
     assert main(["--root", REPO, "--budget-s", "120"]) == 0
     out = capsys.readouterr().out
     assert "clean: 0 violations" in out
-    assert "jitpure and shapes are not ported" in out and "Queue 1 item 6" in out
+    assert "not ported" not in out and "unported" not in out.lower()
     assert main(["--root", REPO, "--budget-s", "0.000001"]) == 1
     assert "BUDGET" in capsys.readouterr().out
+
+
+# -- the capture checkers: the port's jitpure and shapes ---------------------------
+
+
+def _F(rel, src):
+    return (rel, ast.parse(src), src)
+
+
+#: a module whose ``step`` a CUDA graph captures; ``{body}`` is planted into
+#: step, ``{capture}`` into the capture block, ``{extra}`` after the class
+_CAPTURED = """\
+import functools
+import os
+import random
+import time
+
+import numpy as np
+import torch
+
+_GRAPHS = {{}}
+
+
+def helper(t):
+    return t
+
+
+@functools.lru_cache(maxsize=None)
+def const(device):
+    print("built once")
+    return torch.as_tensor(np.ones(3), device=device)
+
+
+def step(t, mask=None, reps: int = 2):
+{body}
+    return t
+
+
+class _Graph:
+    def __init__(self, n: int, device: torch.device):
+        self.t = torch.zeros(n, device=device)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = step(self.t)
+{capture}
+
+{extra}
+"""
+
+
+def _plant(body="    pass", capture="", extra="", rel="dag_rider_tpu_torch/ops/planted.py"):
+    src = _CAPTURED.format(body=body, capture=capture, extra=extra)
+    return [_F(rel, src)], src
+
+
+def _lines(src, marker):
+    return [i for i, ln in enumerate(src.splitlines(), 1) if marker in ln]
+
+
+#: (checker, planted line in step, fragment of the finding's message)
+_CAPTURE_CASES = [
+    (pjitpure, "    print(t)", "print() inside captured step()"),
+    (pjitpure, "    v = os.environ.get('HOME')", "os.environ.get() inside captured step()"),
+    (pjitpure, "    v = os.environ['HOME']", "os.environ[...] inside captured step()"),
+    (pjitpure, "    v = os.getenv('HOME')", "environment read at capture time"),
+    (pjitpure, "    open('log.txt')", "file I/O at capture time"),
+    (pjitpure, "    time.perf_counter()", "clock read at capture time"),
+    (pjitpure, "    time.sleep(0.1)", "sleep at capture time"),
+    (pjitpure, "    r = random.random()", "host RNG at capture time"),
+    (pjitpure, "    global _GRAPHS", "global statement inside captured step()"),
+    (pshapes, "    if t.any():\n        t = t + 1", "Python if on a tensor value"),
+    (pshapes, "    while t.sum() > 0:\n        t = t - 1", "Python while on a tensor value"),
+    (pshapes, "    assert (t > 0).all()", "assert on a tensor value"),
+    (pshapes, "    t = t if t.max() > 0 else -t", "conditional expression on a tensor value"),
+    (pshapes, "    ok = bool(t.all())", "bool() of a tensor value"),
+    (pshapes, "    n = int(t.sum())", "int() of a tensor value"),
+    (pshapes, "    n = t.sum().item()", ".item() of a tensor value"),
+    (pshapes, "    rows = t.tolist()", ".tolist() of a tensor value"),
+    (pshapes, "    h = t.cpu()", ".cpu() of a tensor value"),
+    (pshapes, "    h = np.asarray(t)", "np.asarray() of a tensor value"),
+    (pshapes, "    c = torch.tensor([1, 2], device=t.device)", "torch.tensor() — host-to-device"),
+    (pshapes, "    c = torch.as_tensor(np.ones(3), device=t.device)", "torch.as_tensor() — host-to"),
+    (pshapes, "    c = torch.from_numpy(np.ones(3))", "torch.from_numpy() — host-to-device"),
+    (pshapes, "    torch.cuda.synchronize()", "torch.cuda.synchronize() — a device sync"),
+]
+
+
+@pytest.mark.parametrize("checker, line, fragment", _CAPTURE_CASES,
+                         ids=[f"{c.CHECKER}-{f.split()[0]}" for c, _, f in _CAPTURE_CASES])
+def test_capture_checkers_flag_a_planted_step(checker, line, fragment):
+    """Each class in a captured step is flagged at its line, naming the
+    capture site; the same module outside ops/ and parallel/ is not."""
+    files, src = _plant(body=line)
+    got = checker.run(files, REPO)
+    at = _lines(src, line.splitlines()[0].strip())[0]
+    hits = [f for f in got if fragment in f.message]
+    assert [f.line for f in hits] == [at], [str(f) for f in got]
+    assert all(f.checker == checker.CHECKER and f.path.endswith("ops/planted.py") for f in got)
+    assert "captured at dag_rider_tpu_torch.ops.planted._Graph.__init__:" in hits[0].message
+    for rel in ("dag_rider_tpu_torch/consensus/planted.py", "chip_smoke.py"):
+        assert checker.run(_plant(body=line, rel=rel)[0], REPO) == []
+
+
+def test_capture_checkers_follow_calls_and_read_the_capture_block():
+    """A helper the captured step calls is captured too (found through the
+    flow graph, in another file), and so is the capture block itself."""
+    helper = _F("dag_rider_tpu_torch/utils/planted_helper.py",
+                "def noisy(t):\n    print(t)\n    return t.item()\n")
+    files, src = _plant(body="    t = noisy(t)",
+                        capture="            if self.t.any():\n                print('x')")
+    files[0] = _F(files[0][0], "from dag_rider_tpu_torch.utils.planted_helper import noisy\n"
+                  + files[0][2])
+    files.append(helper)
+    pure = [str(f) for f in pjitpure.run(files, REPO)]
+    shp = [str(f) for f in pshapes.run(files, REPO)]
+    assert any("utils/planted_helper.py:2" in f and "captured noisy()" in f for f in pure), pure
+    assert any("capture of _Graph.__init__()" in f and "print()" in f for f in pure), pure
+    assert any("planted_helper.py:3" in f and ".item()" in f for f in shp), shp
+    assert any("Python if on a tensor value" in f and "capture of _Graph.__init__()" in f
+               for f in shp), shp
+
+
+def test_shapes_flags_an_unhashable_graph_store_key():
+    extra = ("def lookup(dev, n):\n"
+             "    g = _GRAPHS.get([dev, n])\n"
+             "    _GRAPHS[{dev: n}] = g\n"
+             "    return _GRAPHS[(dev, n)]\n")
+    files, src = _plant(extra=extra)
+    got = pshapes.run(files, REPO)
+    assert sorted(f.line for f in got) == _lines(src, "_GRAPHS.get([") + _lines(src, "_GRAPHS[{")
+    assert all("unhashable key into graph store _GRAPHS" in f.message for f in got)
+
+
+def test_capture_checkers_pass_the_clean_idioms():
+    """Shape, dtype and device branches, loops over shapes and host ints,
+    ``is None`` tests, torch.where, a memoised constant and an uncaptured
+    function that prints: nothing is flagged."""
+    body = "\n".join([
+        "    if mask is not None:",
+        "        t = torch.where(mask, t, -t)",
+        "    if t.shape[0] > 4 and t.dim() == 1 and t.dtype == torch.int32:",
+        "        t = t[:4]",
+        "    if t.device.type != 'cuda':",
+        "        t = t + 0",
+        "    for i in range(t.shape[0]):",
+        "        t = t + i",
+        "    while reps > 0:",
+        "        reps -= 1",
+        "    t = t + const(t.device)",
+        "    t = helper(t).clone()",
+    ])
+    extra = "def host_side(t):\n    print(t.item())\n    return _GRAPHS.get((1, 2))\n"
+    files, _ = _plant(body=body, extra=extra)
+    assert pjitpure.run(files, REPO) == []
+    assert pshapes.run(files, REPO) == []
+
+
+def test_capture_checkers_find_the_trees_three_capture_sites(tree):
+    files, graph, _ = tree
+    caps = pjitpure.captures(files, graph)
+    assert sorted((c.fi.qname.split(".")[-3:-1], c.fi.rel) for c in caps) == [
+        (["bls_g1", "_StepGraph"], "dag_rider_tpu_torch/ops/bls_g1.py"),
+        (["bls_pairing", "_WalkGraph"], "dag_rider_tpu_torch/ops/bls_pairing.py"),
+        (["windowed", "_StepGraph"], "dag_rider_tpu_torch/ops/windowed.py"),
+    ]
+    captured = pjitpure.captured_functions(caps, graph)
+    ops = "dag_rider_tpu_torch.ops."
+    for qn in ("windowed.step", "bls_pairing.walk", "bls_g1.ladder_step", "cuda_group.padd_xx",
+               "cuda_group.launch", "field381.mul"):
+        assert ops + qn in captured, qn
+    # memoised loaders stop the walk: the library build is never captured
+    assert ops + "cuda_group.lib" not in captured
+    assert "dag_rider_tpu_torch.utils.build._build_all" not in captured
+    assert pjitpure.run(files, REPO, graph=graph) == []
+    assert pshapes.run(files, REPO, graph=graph) == []
 
 
 # -- the race harness, on the port's package -------------------------------------

@@ -8,10 +8,11 @@ allowed difference, and each is named here: ``scenarios._coin_factory``
 and ``scenarios.run_scenario`` take a ``device`` keyword and pass it to
 the coins, so ``device`` is taken out of those two functions' signatures
 and calls before the comparison. The checkers' copies (``analysis/``) have
-two more kinds of declared seam: strings that name the port's own root
-script (``STRINGS``, mapped back before the comparison), and functions whose bodies are the
-port's own (``OWN``: ``run_static`` leaves out the unported ``jitpure`` and
-``shapes``, the runner's ``main`` names them), each pinned by a test of
+a declared seam of their own: strings that name the port's own root
+script (``STRINGS``, mapped back before the comparison). ``OWN`` names
+functions whose bodies are the port's own (none today: since the port
+has its own ``jitpure`` and ``shapes``, the capture checkers, ``run_static``
+and the runner's ``main`` are the reference's), each pinned by a test of
 its behaviour in ``tests/test_torch_analysis.py``. The networked
 deployment's copies (the gRPC transport, the blob bus, the sidecar, the
 node and the cluster harness) have a fourth kind, ``BLOCKS``: a stretch of
@@ -20,13 +21,24 @@ sidecar warms its backend up without the reference's XLA cache call, the
 node builds the card's verifiers where the reference builds the TPU's,
 hands its coin "host" where the reference hands it None and reads a
 ``sync_patience`` key (a socket committee needs more anti-entropy patience
-than the simulator's default), and the cluster runner drops from its
+than the simulator's default) and a ``net_batch`` key (the gRPC
+transport's batch mode: its ``DeliverMany`` method, ``split_batch``, the
+``batch_bytes`` outbox with ``flush``, which the node's pump calls), and
+the cluster runner drops from its
 restored proposal queue, and through the mempool's one added method
 ``Mempool.drop_committed`` from its pool, what its delivery log or hint
 shows committed (the reference keeps it: a kill -9 rejoin then commits a
 transaction twice); each is pinned by a test of its behaviour in
 ``tests/test_torch_node.py``, ``tests/test_torch_net.py`` and
-``tests/test_torch_cluster.py``. A copy cannot drift unseen.
+``tests/test_torch_cluster.py``. The three command-line scripts
+(``SCRIPTS``: ``dag_rider_tpu_torch/scripts/`` against the repository's
+``scripts/``) declare their usage strings (``STRINGS``) and, as
+``BLOCKS``, the imports and the ``JAX_PLATFORMS``/``sys.path`` lines the
+port drops (it runs as a package module and has no JAX); ``obs_report``'s
+capture mode forces its knob on through ``config.env_set``, a write the
+registry validates, where the reference assigns ``os.environ``
+(``tests/test_torch_scripts.py`` pins the behaviour). A copy cannot drift
+unseen.
 """
 
 import ast
@@ -70,6 +82,8 @@ COPIES = {
         "core", "allowlist", "knobs", "determinism", "oracle", "metricsreg", "events",
         "flow", "locks", "release", "ladder", "races", "__init__", "__main__")},
     # host modules that were already identical copies
+    # the command-line scripts (their reference lives outside the package)
+    **{m: () for m in ("scripts/cluster.py", "scripts/soak.py", "scripts/obs_report.py")},
     **{m: () for m in (
         "consensus/__init__.py", "consensus/dag_state.py", "consensus/invariants.py",
         "consensus/process.py", "core/__init__.py", "core/codec.py", "core/stack.py",
@@ -84,24 +98,86 @@ COPIES = {
 #: comparison
 STRINGS = {
     "analysis/core.py": {"chip_smoke.py": "bench.py"},
+    "scripts/cluster.py": {"python -m dag_rider_tpu_torch.scripts.cluster": "scripts/cluster.py"},
 }
+
+#: the copies whose reference is the repository's, not the package's
+SCRIPTS = ("scripts/cluster.py", "scripts/soak.py", "scripts/obs_report.py")
+
+_JAX_CPU = 'os.environ.setdefault("JAX_PLATFORMS", "cpu")\n'
+_SYS_PATH = "sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))\n"
 
 #: module path -> functions whose bodies are the port's own (the signature
 #: is still compared)
-OWN = {
-    "analysis/core.py": ("run_static",),
-    "analysis/__main__.py": ("main",),
-}
+OWN: dict = {}
 
 #: module path -> module-level names only the port defines or imports
-OWN_NAMES = {
-    "analysis/core.py": ("UNPORTED",),
-    "analysis/__main__.py": ("UNPORTED",),
-}
+OWN_NAMES: dict = {}
+
+#: the batch mode's two methods on ``GrpcTransport`` (``transport/net.py``)
+_NET_BATCH_METHODS = '''    def _many_stub(self, peer: int):
+        """The DeliverMany stub on ``peer``'s current channel (rebuilt when
+        the channel was recycled). ValueError when the channel went away
+        in between, which the caller treats as a failed attempt."""
+        self._stub(peer)
+        with self._lock:
+            chan = self._channels.get(peer)
+            if chan is None:
+                raise ValueError(f"no channel to peer {peer}")
+            held = self._many_stubs.get(peer)
+            if held is None or held[0] is not chan:
+                held = (chan, chan.unary_unary(
+                    _MANY_METHOD,
+                    request_serializer=bytes,  # gRPC takes bytes, not _Batch
+                    response_deserializer=_identity,
+                ))
+                self._many_stubs[peer] = held
+            return held[1]
+
+    def flush(self) -> None:
+        """Batch mode: ship every peer's queued frames, in order, as
+        DeliverMany RPCs of at most ``batch_bytes`` each (a larger frame
+        goes alone). A no-op when batch mode is off. Called by the owner
+        thread after each pump."""
+        if self._outbox is None:
+            return
+        with self._lock:
+            box, self._outbox = self._outbox, {}
+        for peer, frames in box.items():
+            parts, size = [], 0
+            for frame in frames:
+                if parts and size + 4 + len(frame) > self._batch_bytes:
+                    self._send(peer, _Batch(b"".join(parts)), attempt=0)
+                    parts, size = [], 0
+                parts.append(struct.pack("<I", len(frame)) + frame)
+                size += 4 + len(frame)
+            if parts:
+                self._send(peer, _Batch(b"".join(parts)), attempt=0)
+
+'''
 
 #: module path -> ((port source, reference source), ...): each port
 #: stretch occurs exactly once and reads the reference's before parsing
 BLOCKS = {
+    "scripts/cluster.py": (
+        ("import json\nimport shutil\n", "import json\nimport os\nimport shutil\n"),
+        ("import threading\n\nfrom dag_rider_tpu_torch import config",
+         f"import threading\n\n{_JAX_CPU}\n{_SYS_PATH}\nfrom dag_rider_tpu_torch import config"),
+    ),
+    "scripts/soak.py": ((
+        "import time\n\nfrom dag_rider_tpu_torch import node",
+        f"import time\n\n{_JAX_CPU}\nfrom dag_rider_tpu_torch import node",
+    ),),
+    "scripts/obs_report.py": (
+        ("import json\nimport sys\nfrom typing import List, Optional\n",
+         f"import json\nimport os\nimport sys\nfrom typing import List, Optional\n\n"
+         f"{_JAX_CPU}{_SYS_PATH}"),
+        ("""    from dag_rider_tpu_torch.config import env_set
+
+    env_set("DAGRIDER_TRACE", "1")
+""", """    os.environ["DAGRIDER_TRACE"] = "1"
+"""),
+    ),
     "verifier/sidecar.py": ((
         """        if hasattr(backend, "warmup"):
             if warmup:
@@ -153,7 +229,92 @@ BLOCKS = {
         """            msm = None
             msm_kind = cfg.get("coin_msm", "host")
 """,
+    ), (
+        """
+#: the largest DeliverMany RPC a node sends with "net_batch" on; gRPC's
+#: default receive limit is 4 MiB
+NET_BATCH_BYTES = 1 << 20
+""",
+        "",
+    ), (
+        """            batch_bytes=NET_BATCH_BYTES if cfg.get("net_batch") else 0,
+""",
+        "",
+    ), (
+        """        self.net.flush()
+""",
+        "",
     )),
+    "transport/net.py": (
+        ("""_SUBMIT_METHOD = f"/{_SERVICE}/Submit"
+_MANY_METHOD = f"/{_SERVICE}/DeliverMany"
+""", """_SUBMIT_METHOD = f"/{_SERVICE}/Submit"
+"""),
+        ("""
+
+class _Batch(bytes):
+    \"\"\"The body of one DeliverMany RPC: ``u32 length || frame`` entries.
+    A type of its own so that a retry goes out as the batch it was.\"\"\"
+
+
+def split_batch(body: bytes):
+    \"\"\"The frames of a DeliverMany body, in order. A truncated entry (a
+    Byzantine peer's malformed bytes) ends the list: what came before it
+    is kept, the rest is dropped.\"\"\"
+    frames, off = [], 0
+    while off + 4 <= len(body):
+        (size,) = struct.unpack_from("<I", body, off)
+        off += 4
+        if off + size > len(body):
+            break
+        frames.append(body[off:off + size])
+        off += size
+    return frames
+""", ""),
+        ("""        if handler_call_details.method == _MANY_METHOD:
+
+            def many(request: bytes, context) -> bytes:
+                for frame in split_batch(request):
+                    self._sink(frame)
+                return b"\\x01"
+
+            return grpc.unary_unary_rpc_method_handler(
+                many,
+                request_deserializer=_identity,
+                response_serializer=_identity,
+            )
+""", ""),
+        ("""        log=None,
+        batch_bytes: int = 0,
+    ):
+""", """        log=None,
+    ):
+"""),
+        ("""        #: batch mode (module docstring): peer -> frames queued since the
+        #: last flush; None when off
+        self._batch_bytes = int(batch_bytes)
+        self._outbox: Optional[Dict[int, list]] = {} if batch_bytes > 0 else None
+        self._many_stubs: Dict[int, Tuple[grpc.Channel, Callable]] = {}
+""", ""),
+        (_NET_BATCH_METHODS, ""),
+        ("""        if (
+            self._outbox is not None
+            and attempt == 0
+            and not isinstance(payload, _Batch)
+        ):
+            with self._lock:
+                self._outbox.setdefault(peer, []).append(payload)
+            return
+""", ""),
+        ("""            stub = (
+                self._many_stub(peer)
+                if isinstance(payload, _Batch)
+                else self._stub(peer)
+            )
+            fut = stub.future(payload, timeout=self._rpc_timeout_s)
+""", """            fut = self._stub(peer).future(payload, timeout=self._rpc_timeout_s)
+"""),
+    ),
     "cluster/runner.py": (
         ("""        self._drop_committed_blocks()
         self._reinject()
@@ -329,11 +490,11 @@ def test_a_declared_block_maps_back_only_where_it_stands():
 @pytest.mark.parametrize("rel", sorted(COPIES))
 def test_port_module_is_a_copy(rel):
     port = ROOT / "dag_rider_tpu_torch" / rel
-    ref = ROOT / "dag_rider_tpu" / rel
+    ref = ROOT / rel if rel in SCRIPTS else ROOT / "dag_rider_tpu" / rel
     own = OWN.get(rel, ())
     assert normalised(port, COPIES[rel], STRINGS.get(rel), own, OWN_NAMES.get(rel, ()),
                       BLOCKS.get(rel, ())) == normalised(ref, own=own), (
-        f"dag_rider_tpu_torch/{rel} differs from dag_rider_tpu/{rel} beyond its imports "
+        f"dag_rider_tpu_torch/{rel} differs from its reference {ref} beyond its imports "
         f"and declared seams {COPIES[rel]}")
 
 

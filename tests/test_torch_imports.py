@@ -14,6 +14,14 @@ the JAX package and gRPC cannot be imported at all: the in-memory path
 needs no gRPC. Last, the networked modules are imported, and a sidecar
 answers a batch, in a fresh interpreter where only JAX and the JAX
 package are blocked.
+
+A completeness guard joins the file lists of the JAX package, the
+repository's entry points (``__graft_entry__.py``, ``bench.py``) and its
+``scripts/`` against the port: every one has a counterpart at the same
+path in ``dag_rider_tpu_torch/`` (``__graft_entry__.py`` as
+``graft_entry.py``, ``scripts/`` as the package's ``scripts/``), under one
+of five declared renames, or is one of the two files named as the port
+benchmark's own.
 """
 
 import ast
@@ -42,6 +50,50 @@ def imported_modules(tree):
 
 def forbidden(name: str) -> bool:
     return name.split(".")[0] in FORBIDDEN
+
+
+#: reference module -> its port counterpart under another name
+RENAMED = {
+    "dag_rider_tpu/ops/pallas_field.py": "dag_rider_tpu_torch/ops/cuda_field.py",
+    "dag_rider_tpu/ops/pallas_group.py": "dag_rider_tpu_torch/ops/cuda_group.py",
+    "dag_rider_tpu/ops/pallas_group381.py": "dag_rider_tpu_torch/ops/cuda_group381.py",
+    "dag_rider_tpu/verifier/tpu.py": "dag_rider_tpu_torch/verifier/cuda.py",
+    "dag_rider_tpu/utils/jaxcache.py": "dag_rider_tpu_torch/utils/build.py",
+}
+
+#: reference files the port's benchmark takes on, not a bring-up slice
+BENCHMARK_OWN = ("bench.py", "scripts/tpu_capture.sh")
+
+
+def reference_files():
+    pkg = sorted(p.relative_to(ROOT).as_posix() for p in (ROOT / "dag_rider_tpu").rglob("*.py")
+                 if "__pycache__" not in p.parts)
+    scripts = sorted(p.relative_to(ROOT).as_posix() for p in (ROOT / "scripts").iterdir()
+                     if p.is_file())
+    return pkg + ["__graft_entry__.py", "bench.py"] + scripts
+
+
+def counterpart(rel: str) -> str:
+    if rel in RENAMED:
+        return RENAMED[rel]
+    if rel == "__graft_entry__.py":
+        return "dag_rider_tpu_torch/graft_entry.py"
+    if rel.startswith("dag_rider_tpu/"):
+        return "dag_rider_tpu_torch/" + rel[len("dag_rider_tpu/"):]
+    return "dag_rider_tpu_torch/" + rel
+
+
+def test_every_reference_module_has_a_counterpart():
+    refs = reference_files()
+    assert len(refs) > 100 and "scripts/cluster.py" in refs
+    for rel in (*RENAMED, *BENCHMARK_OWN):
+        assert rel in refs, f"a declared exception names {rel}, which is gone"
+    for rel, port in RENAMED.items():  # a real rename: no module under the old name
+        assert (ROOT / port).exists(), port
+        assert not (ROOT / "dag_rider_tpu_torch" / rel.split("/", 1)[1]).exists(), rel
+    missing = [rel for rel in refs
+               if rel not in BENCHMARK_OWN and not (ROOT / counterpart(rel)).exists()]
+    assert missing == [], f"no port counterpart for {missing}"
 
 
 def test_the_guard_sees_what_it_must():

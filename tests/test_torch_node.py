@@ -11,7 +11,8 @@ behave as declared. ``"device"`` and ``"sharded"`` verifiers and
 one (never a CPU stand-in, with or without the ladder's floor);
 ``coin_msm: "host"`` (the default) builds the host group law's coin; the
 ``verify_fallback``/``verify_retry`` knobs wire the ladder as the
-reference wires it.
+reference wires it; ``net_batch`` puts the transport in batch mode, and a
+live 4-node committee with it delivers and agrees.
 """
 
 import json
@@ -156,3 +157,57 @@ def test_sync_patience_is_a_node_config_key(tmp_path):
         assert ref.process.cfg.sync_patience == 8
     finally:
         ref.net.close()
+
+
+def test_net_batch_is_a_node_config_key(tmp_path):
+    """``net_batch`` puts the node's gRPC transport in batch mode with
+    ``NET_BATCH_BYTES`` a batch; unset or false, the transport sends one
+    RPC a frame as the reference's does."""
+    keys = _keys(tmp_path)
+    for kw, want in (({}, 0), ({"net_batch": False}, 0),
+                     ({"net_batch": True}, node_mod.NET_BATCH_BYTES)):
+        nd = node_mod.Node(_cfg(keys, **kw))
+        try:
+            assert nd.net._batch_bytes == want
+            assert (nd.net._outbox is None) == (want == 0)
+        finally:
+            nd.net.close()
+
+
+def test_a_batched_four_node_committee_delivers_and_agrees(tmp_path):
+    """The reference's live 4-node committee (RBC, threshold coin, empty
+    proposals) with ``net_batch`` on: every node delivers n vertices and
+    the logs agree, in fewer RPCs than frames (the pump flushes)."""
+    import time
+
+    from dag_rider_tpu_torch.core.types import Block as TBlock
+
+    keys = _keys(tmp_path)
+    n = 4
+    nodes = [node_mod.Node(_cfg(keys, index=i, rbc=True, coin="threshold_bls",
+                                propose_empty=True, submit_interval_s=0, net_batch=True))
+             for i in range(n)]
+    addrs = {i: f"127.0.0.1:{nd.net.bound_port}" for i, nd in enumerate(nodes)}
+    for i, nd in enumerate(nodes):
+        nd.net._peers.update({j: a for j, a in addrs.items() if j != i})
+    broadcasts = []
+    inner = nodes[0].net.broadcast
+    nodes[0].net.broadcast = lambda msg: (broadcasts.append(msg.kind), inner(msg))
+    try:
+        for nd in nodes:
+            nd.start()
+        for nd in nodes:
+            for k in range(10):
+                nd.submit(TBlock((f"n{nd.process.index}-b{k}".encode(),)))
+        deadline = time.time() + 60
+        while time.time() < deadline and not all(len(nd.delivered) >= n for nd in nodes):
+            time.sleep(0.05)
+    finally:
+        for nd in nodes:
+            nd.stop()
+    logs = [[(v.id.round, v.id.source, v.digest()) for v in nd.delivered] for nd in nodes]
+    k = min(len(log) for log in logs)
+    assert k >= n and all(log[:k] == logs[0][:k] for log in logs)
+    frames = (n - 1) * len(broadcasts)  # node 0's frames: one a peer a broadcast
+    sends = nodes[0].process.metrics.counters["net_sends"]
+    assert 0 < sends < frames and {"val", "echo", "ready"} <= set(broadcasts)
