@@ -821,11 +821,12 @@ def main() -> int:
 
     walls, preps, devs = [], [], []
     for _ in range(PATH_REPEATS):
+        p0, d0 = span_s(ver, PREP), span_s(ver, *ENQUEUE_TO_MASK)
         t0 = time.perf_counter()
         again = ver.verify_rounds(rounds)
         walls.append(time.perf_counter() - t0)
-        preps.append(ver.last_prepare_s)
-        devs.append(ver.last_dispatch_s)
+        preps.append(span_s(ver, PREP) - p0)
+        devs.append(span_s(ver, *ENQUEUE_TO_MASK) - d0)
         if again != masks:
             fail("a repeated dispatch returned another mask")
     wall = statistics.median(walls)
@@ -971,6 +972,19 @@ def flat_mask(masks) -> list:
     return [bool(bit) for mk in masks for bit in mk]
 
 
+#: the verifier's spans (obs/spans.py) from a dispatch's enqueue to its
+#: mask on the host, and of its resolve alone
+ENQUEUE_TO_MASK = ("dagrider.verify.dispatch", "dagrider.verify.wait",
+                   "dagrider.verify.copy_out")
+RESOLVE = ENQUEUE_TO_MASK[1:]
+PREP = "dagrider.verify.prep"
+
+
+def span_s(ver, *names: str) -> float:
+    """Seconds the verifier's span book holds under ``names``, summed."""
+    return sum(ver.spans.seconds(name) for name in names)
+
+
 def host_prep_phase(ver, rounds, mask) -> None:
     """The verifier's host half on the path's 4,096 rows: the prep arrays
     byte-identical at 1 worker and W = min(4, cpus) workers with the
@@ -1036,7 +1050,7 @@ def host_prep_phase(ver, rounds, mask) -> None:
         for _ in range(3):  # depth 1 and 2 in turns
             for depth in (1, 2):
                 ver.pipeline_depth = depth
-                p0, d0 = ver.total_prepare_s, ver.total_dispatch_s
+                p0, d0 = ver.total_prepare_s, span_s(ver, *RESOLVE)
                 torch.cuda.synchronize()
                 CG.reset_launches()
                 cuda_field.reset_launches()
@@ -1045,7 +1059,7 @@ def host_prep_phase(ver, rounds, mask) -> None:
                 runs[depth]["wall"].append(time.perf_counter() - t0)
                 torch.cuda.synchronize()
                 runs[depth]["prep"].append(ver.total_prepare_s - p0)
-                runs[depth]["wait"].append(ver.total_dispatch_s - d0)
+                runs[depth]["wait"].append(span_s(ver, *RESOLVE) - d0)
                 launches = {**CG.LAUNCHES, **CG.TABLE_LAUNCHES, **cuda_field.LAUNCHES}
                 want = {"padd_xx": 0, "tree_sum_xyzt": chunks, "finish_check": chunks,
                         "pow22523": 0, "field_mul": 0, **NO_TABLES}
@@ -1142,11 +1156,12 @@ def comb8_phase(reg, rounds, mask, sample, oracle, imad_per_s: float, builds: li
         fail("8-bit mask differs from the host oracle on the sample")
     walls, preps, devs = [], [], []
     for _ in range(PATH_REPEATS):
+        p0, d0 = span_s(v8, PREP), span_s(v8, *ENQUEUE_TO_MASK)
         t0 = time.perf_counter()
         again = v8.verify_rounds(rounds)
         walls.append(time.perf_counter() - t0)
-        preps.append(v8.last_prepare_s)
-        devs.append(v8.last_dispatch_s)
+        preps.append(span_s(v8, PREP) - p0)
+        devs.append(span_s(v8, *ENQUEUE_TO_MASK) - d0)
         if again != masks:
             fail("a repeated 8-bit dispatch returned another mask")
     wall = statistics.median(walls)
@@ -2653,12 +2668,13 @@ def n1024_phase(imad_per_s: float, builds: list):
         fail("config #5: a valid signature outside the corrupted set was rejected")
     walls, preps, devs = [], [], []
     for _ in range(PATH_REPEATS):
+        p0, d0 = span_s(sv, PREP), span_s(sv, *ENQUEUE_TO_MASK)
         t0 = time.perf_counter()
         if flat_mask(sv.verify_rounds(rounds)) != mask:
             fail("config #5: a repeated dispatch returned another mask")
         walls.append(time.perf_counter() - t0)
-        preps.append(sv.last_prepare_s)
-        devs.append(sv.last_dispatch_s)
+        preps.append(span_s(sv, PREP) - p0)
+        devs.append(span_s(sv, *ENQUEUE_TO_MASK) - d0)
     wall = statistics.median(walls)
     print(f"  verify: {sum(mask)} accepted of {total}; masks equal to CUDAVerifier's and the host "
           f"oracle on {len(sample)} rows; warmup {t_warm:.2f} s, first merged dispatch "
@@ -3888,16 +3904,18 @@ def sidecar_load_phase(server, backend, rounds, mask, ver) -> dict:
                 t = time.perf_counter()
                 sc._encode_batch(rnd)
                 parts["encode"].append(time.perf_counter() - t)
+                p0, d0 = span_s(card, PREP), span_s(card, *ENQUEUE_TO_MASK)
                 t = time.perf_counter()
                 remote.verify_batch(rnd)
                 parts["rpc"].append(time.perf_counter() - t)
-                parts["prep"].append(card.last_prepare_s)
-                parts["device"].append(card.last_dispatch_s)
+                parts["prep"].append(span_s(card, PREP) - p0)
+                parts["device"].append(span_s(card, *ENQUEUE_TO_MASK) - d0)
+                p0, d0 = span_s(ver, PREP), span_s(ver, *ENQUEUE_TO_MASK)
                 t = time.perf_counter()
                 ver.verify_batch(rnd)
                 parts["local"].append(time.perf_counter() - t)
-                parts["local_prep"].append(ver.last_prepare_s)
-                parts["local_device"].append(ver.last_dispatch_s)
+                parts["local_prep"].append(span_s(ver, PREP) - p0)
+                parts["local_device"].append(span_s(ver, *ENQUEUE_TO_MASK) - d0)
     finally:
         remote.close()
     med = {k: statistics.median(v) * 1e3 for k, v in parts.items()}
@@ -4062,7 +4080,7 @@ def sockets_phase(server, backend, seeds) -> dict:
                 fail(f"I2: worker {w} did not come up")
         boot = time.perf_counter() - t_boot
         d0, rows0, busy0 = card.total_dispatches, len(backend.bits), backend.busy_s
-        sent0, card_s0 = backend.rows, card.total_dispatch_s
+        sent0, card_s0 = backend.rows, span_s(card, *ENQUEUE_TO_MASK)
         reset_launch_counters()
         t0 = last = time.perf_counter()
         go.set()
@@ -4148,7 +4166,7 @@ def sockets_phase(server, backend, seeds) -> dict:
     delivered = min(len(nd["log"]) for nd in nodes)
     committed_tx = sum(nodes[0]["txs"][:delivered])
     commit = [x for nd in nodes for x in nd["commit_s"]]
-    card_s = card.total_dispatch_s - card_s0
+    card_s = span_s(card, *ENQUEUE_TO_MASK) - card_s0
     msm_s = sum(r["msm_s"] for r in results)
     busy = (f"at most {(card_s + msm_s) / wall:.3%} of the wall, bounded by host walls around "
             f"its work (the CUDA profiler is not run across these processes): the sidecar's "

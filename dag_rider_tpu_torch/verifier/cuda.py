@@ -33,6 +33,9 @@ launches on the calling thread's current CUDA stream, no sync);
 contains a prep, dispatch or resolve fault (salvage, fresh staging slots,
 quarantine). ``verifier.pipeline.VerifierPipeline`` and
 ``consensus.simulator.Simulation`` drive the same halves by duck typing.
+The phases of each half (prep's row loop, checks, hash and packing; the
+copy in, the launch, the wait, the copy out) are spans of the verifier's
+book, ``verifier.spans`` (``obs/spans.py``).
 Vertices are any objects with ``.source``, ``.signature`` and
 ``.signing_bytes()``.
 """
@@ -48,6 +51,7 @@ import torch
 
 from dag_rider_tpu_torch import config
 from dag_rider_tpu_torch.crypto import ed25519
+from dag_rider_tpu_torch.obs.spans import Context, SpanBook, adopt, carry
 from dag_rider_tpu_torch.ops import comb, field, windowed
 from dag_rider_tpu_torch.utils import native
 from dag_rider_tpu_torch.verifier.base import (
@@ -218,24 +222,26 @@ def resolve_device(device: Optional[torch.device | str]) -> torch.device:
 class PreppedBatch(NamedTuple):
     """Handle between the prep_batch/dispatch_prepped halves of a
     dispatch: the host transfer arrays (a staging-ring slot), the padded
-    size, the real row count, and the prep wall seconds (booked at
-    dispatch time, on the dispatching thread)."""
+    size, the real row count, the prep span's wall seconds (booked at
+    dispatch time, on the dispatching thread), and the span context of
+    the request that asked for it."""
 
     args: tuple
     size: int
     count: int
     prep_s: float
+    ctx: Context
 
 
 class Pending(NamedTuple):
     """Handle of one enqueued dispatch: the device mask, the real row
     count, the event recorded after the dispatch (None on the CPU), and
-    the host clock when the device work was enqueued."""
+    the span context of the request that asked for it."""
 
     mask: torch.Tensor
     count: int
     event: Optional[torch.cuda.Event]
-    t_enqueue: float
+    ctx: Context
 
 
 class CUDAVerifier(Verifier):
@@ -301,6 +307,8 @@ class CUDAVerifier(Verifier):
         self.pipeline_depth = default_depth()
         #: cumulative seconds spent in warmup()
         self.warmup_compile_s = 0.0
+        #: the verify path's span book (obs/spans.py)
+        self.spans = SpanBook()
 
     @property
     def u8_cols(self) -> int:
@@ -325,69 +333,73 @@ class CUDAVerifier(Verifier):
         invalid and zero-filled. The numpy kernels and the native
         challenge batch release the GIL, so concurrent blocks overlap."""
         rows = hi - lo
-        sig_raw = np.zeros((rows, 64), dtype=np.uint8)
-        pk_raw = np.zeros((rows, 32), dtype=np.uint8)
-        k_raw = np.zeros((rows, 32), dtype=np.uint8)
-        src = np.zeros(rows, dtype=np.int64)
-        structural = np.zeros(rows, dtype=bool)
-        msgs: List[bytes] = []
-        for j in range(lo, min(hi, len(vertices))):
-            v = vertices[j]
-            jl = j - lo
-            pk = self.registry.key_of(v.source)
-            sig = v.signature
-            if pk is None or sig is None or len(sig) != 64 or len(pk) != 32:
-                msgs.append(b"")
-                continue
-            sig_raw[jl] = np.frombuffer(sig, dtype=np.uint8)
-            pk_raw[jl] = np.frombuffer(pk, dtype=np.uint8)
-            src[jl] = v.source
-            structural[jl] = True
-            msgs.append(v.signing_bytes())
-        s_raw = sig_raw[:, 32:]
-        r_raw = sig_raw[:, :32].copy()
-        s_lt_l = _lex_lt(s_raw, _L_BYTES_LE)
-        r_sign = (r_raw[:, 31] >> 7).astype(np.int32)
-        r_raw[:, 31] &= 0x7F
-        r_lt_p = _lex_lt(r_raw, _P_BYTES_LE)
-        prevalid = structural & s_lt_l & r_lt_p
+        with self.spans.span("dagrider.verify.prep.rows"):
+            sig_raw = np.zeros((rows, 64), dtype=np.uint8)
+            pk_raw = np.zeros((rows, 32), dtype=np.uint8)
+            k_raw = np.zeros((rows, 32), dtype=np.uint8)
+            src = np.zeros(rows, dtype=np.int64)
+            structural = np.zeros(rows, dtype=bool)
+            msgs: List[bytes] = []
+            for j in range(lo, min(hi, len(vertices))):
+                v = vertices[j]
+                jl = j - lo
+                pk = self.registry.key_of(v.source)
+                sig = v.signature
+                if pk is None or sig is None or len(sig) != 64 or len(pk) != 32:
+                    msgs.append(b"")
+                    continue
+                sig_raw[jl] = np.frombuffer(sig, dtype=np.uint8)
+                pk_raw[jl] = np.frombuffer(pk, dtype=np.uint8)
+                src[jl] = v.source
+                structural[jl] = True
+                msgs.append(v.signing_bytes())
+        with self.spans.span("dagrider.verify.prep.checks"):
+            s_raw = sig_raw[:, 32:]
+            r_raw = sig_raw[:, :32].copy()
+            s_lt_l = _lex_lt(s_raw, _L_BYTES_LE)
+            r_sign = (r_raw[:, 31] >> 7).astype(np.int32)
+            r_raw[:, 31] &= 0x7F
+            r_lt_p = _lex_lt(r_raw, _P_BYTES_LE)
+            prevalid = structural & s_lt_l & r_lt_p
         # k = SHA-512(R || A || M) mod L per valid row: one native batch
         # call for the block, or hashlib row by row (the same bytes)
-        idx = np.flatnonzero(prevalid)
-        if len(idx):
-            k_raw[idx] = native.challenges(
-                sig_raw[idx, :32], pk_raw[idx], [msgs[j] for j in idx],
-                use_native=_native_enabled(),
-            )
-        if not self._comb:
-            s_nib, k_nib, a_x, a_y, a_t, valid, r_y, r_sg, pv = dest
-            s_nib[lo:hi] = nibbles_batch(np.where(prevalid[:, None], s_raw, 0))
-            k_nib[lo:hi] = nibbles_batch(k_raw)
-            a_x[lo:hi] = self._a_x[src]
-            a_y[lo:hi] = self._a_y[src]
-            a_t[lo:hi] = self._a_t[src]
-            valid[lo:hi] = self._a_valid[src] & prevalid
-            r_y[lo:hi] = bytes_to_limbs_batch(r_raw)
-            r_sg[lo:hi] = r_sign
-            pv[lo:hi] = prevalid
-            return
-        u8, i32 = dest
-        u8 = u8[lo:hi]
-        i32 = i32[lo:hi]
-        if self._comb_bits == 8:
-            u8[:, :32] = np.where(prevalid[:, None], s_raw, 0)
-            u8[:, 32:64] = k_raw
-            u8[:, 64] = r_sign
-            u8[:, 65] = prevalid
-            u8[:, 66] = self._a_valid[src] & prevalid
-        else:
-            u8[:, :64] = nibbles_batch(np.where(prevalid[:, None], s_raw, 0))
-            u8[:, 64:128] = nibbles_batch(k_raw)
-            u8[:, 128] = r_sign
-            u8[:, 129] = prevalid
-            u8[:, 130] = self._a_valid[src] & prevalid
-        i32[:, 0] = src
-        i32[:, 1:] = bytes_to_limbs_batch(r_raw)
+        with self.spans.span("dagrider.verify.prep.hash"):
+            idx = np.flatnonzero(prevalid)
+            if len(idx):
+                k_raw[idx] = native.challenges(
+                    sig_raw[idx, :32], pk_raw[idx], [msgs[j] for j in idx],
+                    use_native=_native_enabled(),
+                )
+        with self.spans.span("dagrider.verify.prep.pack"):
+            if not self._comb:
+                s_nib, k_nib, a_x, a_y, a_t, valid, r_y, r_sg, pv = dest
+                s_nib[lo:hi] = nibbles_batch(np.where(prevalid[:, None], s_raw, 0))
+                k_nib[lo:hi] = nibbles_batch(k_raw)
+                a_x[lo:hi] = self._a_x[src]
+                a_y[lo:hi] = self._a_y[src]
+                a_t[lo:hi] = self._a_t[src]
+                valid[lo:hi] = self._a_valid[src] & prevalid
+                r_y[lo:hi] = bytes_to_limbs_batch(r_raw)
+                r_sg[lo:hi] = r_sign
+                pv[lo:hi] = prevalid
+                return
+            u8, i32 = dest
+            u8 = u8[lo:hi]
+            i32 = i32[lo:hi]
+            if self._comb_bits == 8:
+                u8[:, :32] = np.where(prevalid[:, None], s_raw, 0)
+                u8[:, 32:64] = k_raw
+                u8[:, 64] = r_sign
+                u8[:, 65] = prevalid
+                u8[:, 66] = self._a_valid[src] & prevalid
+            else:
+                u8[:, :64] = nibbles_batch(np.where(prevalid[:, None], s_raw, 0))
+                u8[:, 64:128] = nibbles_batch(k_raw)
+                u8[:, 128] = r_sign
+                u8[:, 129] = prevalid
+                u8[:, 130] = self._a_valid[src] & prevalid
+            i32[:, 0] = src
+            i32[:, 1:] = bytes_to_limbs_batch(r_raw)
 
     def _prepare(
         self,
@@ -426,10 +438,13 @@ class CUDAVerifier(Verifier):
                 np.empty((size, I32_COLS), dtype=np.int32),
             )
         eng = self._prep()
-        eng.run_blocks(
-            lambda lo, hi: self._prep_block(vertices, lo, hi, dest),
-            eng.plan(size),
-        )
+        ctx = carry()  # the row blocks' spans join the caller's request
+
+        def block(lo: int, hi: int) -> None:
+            with adopt(ctx):
+                self._prep_block(vertices, lo, hi, dest)
+
+        eng.run_blocks(block, eng.plan(size))
         return dest
 
     def comb_tables(self) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -536,18 +551,21 @@ class CUDAVerifier(Verifier):
     def _enqueue(self, args: tuple, count: int) -> Pending:
         """Copy one prepped batch to the device and launch its program on
         the current stream, no sync."""
-        t0 = time.perf_counter()
         if self._comb:
-            u8, i32 = args
             tables, b_tab = self._comb_tables_dev()
-            mask = self._comb_fn()(self._put(u8), self._put(i32), tables, b_tab)
-        else:
-            mask = self._windowed_dispatch(args)
-        event = None
-        if mask.is_cuda:
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(mask.device))
-        return Pending(mask, count, event, t0)
+            with self.spans.span("dagrider.verify.copy_in"):
+                u8, i32 = (self._put(a) for a in args)
+        with self.spans.span("dagrider.verify.launch"):
+            if self._comb:
+                mask = self._comb_fn()(u8, i32, tables, b_tab)
+            else:
+                # the oracle path's copies happen inside its dispatch
+                mask = self._windowed_dispatch(args)
+            event = None
+            if mask.is_cuda:
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(mask.device))
+        return Pending(mask, count, event, carry())
 
     def warmup(self, bucket: Optional[int] = None) -> float:
         """Make the first real dispatch at ``bucket`` rows (default: the
@@ -555,8 +573,8 @@ class CUDAVerifier(Verifier):
         libraries (nvcc) on the card, build the comb tables, load the
         native challenge library when ``DAGRIDER_NATIVE`` is on, and run
         one all-padding dispatch at that size, which books none of the
-        ``total_*`` counters. The counterpart of the reference's AOT
-        compile. Returns the seconds spent (cumulative in
+        ``total_*`` counters and no span. The counterpart of the
+        reference's AOT compile. Returns the seconds spent (cumulative in
         ``warmup_compile_s``); 0.0 when the size is already warm, and on
         the windowed path, which is never on the hot path (as in the
         reference)."""
@@ -574,24 +592,22 @@ class CUDAVerifier(Verifier):
         self._comb_tables_dev()
         if _native_enabled():
             native.load()
-        pending = self._enqueue(self._prepare([], size), 0)
-        if pending.event is not None:
-            pending.event.synchronize()
+        book, self.spans = self.spans, SpanBook()
+        try:
+            pending = self._enqueue(self._prepare([], size), 0)
+            if pending.event is not None:
+                pending.event.synchronize()
+        finally:
+            self.spans = book
         self._warm.add(size)
         dt = time.perf_counter() - t0
         self.warmup_compile_s += dt
         return dt
 
-    #: host-prep / device seconds of the most recent dispatch (prep on the
-    #: host; enqueue to mask on the host for the device)
-    last_prepare_s: float = 0.0
-    last_dispatch_s: float = 0.0
-
     #: Cumulative verifier-seam accounting across a whole run: wall
-    #: seconds in host prep and in resolve, over how many dispatches and
-    #: signatures (warmup() books none of them).
+    #: seconds in host prep (the prep span's), over how many dispatches
+    #: and signatures (warmup() books none of them).
     total_prepare_s: float = 0.0
-    total_dispatch_s: float = 0.0
     total_dispatches: int = 0
     total_sigs_dispatched: int = 0
 
@@ -662,29 +678,36 @@ class CUDAVerifier(Verifier):
         (:meth:`prep_batch_async`); the seam serializes preps FIFO, so
         ring slots are claimed strictly in chunk order."""
         size = self._size_for(len(vertices))
-        t0 = time.perf_counter()
-        out = self._stage(size) if self._comb else None
-        args = self._prepare(vertices, size, out=out)
-        return PreppedBatch(args, size, len(vertices), time.perf_counter() - t0)
+        with self.spans.span("dagrider.verify.prep") as prep:
+            out = self._stage(size) if self._comb else None
+            args = self._prepare(vertices, size, out=out)
+        return PreppedBatch(args, size, len(vertices), prep.s, carry())
 
     def prep_batch_async(self, vertices: Sequence):
-        """:meth:`prep_batch` queued on the engine's FIFO seam thread;
-        returns a Future of the PreppedBatch. Callers keep at most 2 preps
-        outstanding and submit a new one only after the window drained
-        below depth (see _stage())."""
-        return self._prep().submit(self.prep_batch, vertices)
+        """:meth:`prep_batch` queued on the engine's FIFO seam thread
+        under the caller's span context; returns a Future of the
+        PreppedBatch. Callers keep at most 2 preps outstanding and submit
+        a new one only after the window drained below depth (see
+        _stage())."""
+        ctx = carry()
+
+        def prep() -> PreppedBatch:
+            with adopt(ctx):
+                return self.prep_batch(vertices)
+
+        return self._prep().submit(prep)
 
     def dispatch_prepped(self, prepped: PreppedBatch) -> Pending:
         """Device half of :meth:`dispatch_batch`: copy and launch an
         already-prepped batch, no sync. Books the prep accounting carried
         in the handle, so counters change only on the dispatching thread."""
-        args, size, count, prep_s = prepped
-        self.last_prepare_s = prep_s
+        args, size, count, prep_s, ctx = prepped
         self.total_prepare_s += prep_s
         self.total_dispatches += 1
         self.total_sigs_dispatched += count
         self._note_dispatch(size, count)
-        return self._enqueue(args, count)
+        with adopt(ctx), self.spans.span("dagrider.verify.dispatch"):
+            return self._enqueue(args, count)
 
     def dispatch_batch(self, vertices: Sequence) -> Pending:
         """Host prep + device enqueue, no sync. Returns a handle for
@@ -703,7 +726,7 @@ class CUDAVerifier(Verifier):
         try:
             if self.quarantine_verifier is not None:
                 return self.quarantine_verifier.verify_batch(vs)
-            return self._resolve_timed(self.dispatch_batch(vs))
+            return self.resolve_batch(self.dispatch_batch(vs))
         except Exception:  # noqa: BLE001 — second failure fail-closes
             self.quarantine_rejected += 1
             return [False] * len(vs)
@@ -721,7 +744,7 @@ class CUDAVerifier(Verifier):
         while inflight:
             h, ch = inflight.popleft()
             try:
-                salvaged.append((self._resolve_timed(h), ch))
+                salvaged.append((self.resolve_batch(h), ch))
             except Exception:  # noqa: BLE001 — quarantined after reset
                 salvaged.append((None, ch))
         self.reset_staging()
@@ -738,7 +761,7 @@ class CUDAVerifier(Verifier):
         """Resolve the oldest in-flight chunk, containing a resolve fault."""
         h, ch = inflight.popleft()
         try:
-            return self._resolve_timed(h)
+            return self.resolve_batch(h)
         except Exception:  # noqa: BLE001 — contained, not propagated
             return self._contain_stream(inflight, ch, failed_first=True)
 
@@ -779,7 +802,8 @@ class CUDAVerifier(Verifier):
                 while preps:
                     fut, chunk = preps.popleft()
                     try:
-                        prepped = fut.result()
+                        with self.spans.span("dagrider.verify.prep_stall"):
+                            prepped = fut.result()
                     except Exception:  # noqa: BLE001 — prep fault
                         mask.extend(self._contain_stream(inflight, chunk, failed_first=False))
                         prepped = None
@@ -816,22 +840,14 @@ class CUDAVerifier(Verifier):
     def resolve_batch(self, pending: Pending) -> List[bool]:
         """Blocking half: wait on the dispatch's event, then the mask as
         per-vertex host bools."""
-        if pending.event is not None:
-            pending.event.synchronize()
-        out = pending.mask[: pending.count].cpu().tolist()
-        self.last_dispatch_s = time.perf_counter() - pending.t_enqueue
-        return out
-
-    def _resolve_timed(self, pending: Pending) -> List[bool]:
-        """resolve_batch plus the resolve wall in ``total_dispatch_s`` (the
-        share of device time the host waited for; verify_batch and the
-        chunk-streaming verify_rounds resolve through here)."""
-        t0 = time.perf_counter()
-        out = self.resolve_batch(pending)
-        self.total_dispatch_s += time.perf_counter() - t0
-        return out
+        with adopt(pending.ctx):
+            with self.spans.span("dagrider.verify.wait"):
+                if pending.event is not None:
+                    pending.event.synchronize()
+            with self.spans.span("dagrider.verify.copy_out"):
+                return pending.mask[: pending.count].cpu().tolist()
 
     def verify_batch(self, vertices: Sequence) -> List[bool]:
         if not vertices:
             return []
-        return self._resolve_timed(self.dispatch_batch(vertices))
+        return self.resolve_batch(self.dispatch_batch(vertices))

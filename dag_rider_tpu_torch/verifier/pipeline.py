@@ -37,6 +37,7 @@ from typing import Callable, Deque, List, Optional, Sequence
 
 from dag_rider_tpu_torch import config
 from dag_rider_tpu_torch.core.types import Vertex
+from dag_rider_tpu_torch.obs.spans import SpanBook, tagged
 from dag_rider_tpu_torch.utils.slog import NOOP, EventLog
 from dag_rider_tpu_torch.verifier.base import Verifier
 
@@ -79,6 +80,10 @@ class VerifierPipeline(Verifier):
                 "(dispatch_batch/resolve_batch)"
             )
         self.verifier = verifier
+        #: the verify path's span book: the wrapped verifier's when it
+        #: has one (obs/spans.py)
+        self.spans = getattr(verifier, "spans", None) or SpanBook()
+        self._requests = 0  # run_coalesced calls, the request span ids
         # explicit depth > the verifier's own pipeline_depth > env default
         self.depth = (
             int(depth)
@@ -190,10 +195,6 @@ class VerifierPipeline(Verifier):
         dt = time.perf_counter() - t0
         self.wait_s += dt
         self.last_wait_s += dt
-        # device share of the verifier's cumulative seam breakdown (its
-        # own sync verify_batch books the same quantity for itself)
-        if hasattr(self.verifier, "total_dispatch_s"):
-            self.verifier.total_dispatch_s += dt
         return out
 
     # -- fault containment --------------------------------------
@@ -285,6 +286,11 @@ class VerifierPipeline(Verifier):
         device keeps crunching round r+1's tail while the host pumps
         round r+2 — the depth-K window spans round boundaries rather
         than re-filling from empty each cycle."""
+        self._requests += 1
+        with tagged(req=self._requests), self.spans.span("dagrider.verify.request"):
+            return self._run_coalesced(vertices, overlap, hold_tail)
+
+    def _run_coalesced(self, vertices, overlap, hold_tail) -> List[bool]:
         t0 = time.perf_counter()
         self.last_wait_s = 0.0
         self.last_max_depth = len(self._inflight)
@@ -317,14 +323,16 @@ class VerifierPipeline(Verifier):
             preps: Deque = deque()
             nxt = 0
             while nxt < len(chunks) and len(preps) < 2:
-                preps.append(
-                    (self.verifier.prep_batch_async(chunks[nxt]), chunks[nxt])
-                )
+                preps.append((self._prep_ahead(chunks[nxt], nxt), chunks[nxt]))
                 nxt += 1
             while preps:
                 fut, chunk = preps.popleft()
                 try:
-                    prepped = fut.result()
+                    # the chunk waited for is the one before those queued
+                    with self.spans.span(
+                        "dagrider.verify.prep_stall", chunk=nxt - len(preps) - 1
+                    ):
+                        prepped = fut.result()
                 except Exception:  # noqa: BLE001 — prep fault contained
                     self._contain(chunk, failed_first=False)
                 else:
@@ -332,18 +340,14 @@ class VerifierPipeline(Verifier):
                         mask.extend(self._resolve_oldest())
                     self._dispatch_prepped(prepped, chunk)
                 if nxt < len(chunks):
-                    preps.append(
-                        (
-                            self.verifier.prep_batch_async(chunks[nxt]),
-                            chunks[nxt],
-                        )
-                    )
+                    preps.append((self._prep_ahead(chunks[nxt], nxt), chunks[nxt]))
                     nxt += 1
         else:
-            for chunk in chunks:
+            for k, chunk in enumerate(chunks):
                 while self._pending() >= depth:
                     mask.extend(self._resolve_oldest())
-                self._dispatch(chunk)
+                with tagged(chunk=k):
+                    self._dispatch(chunk)
         overlap_s = 0.0
         if overlap is not None:
             t1 = time.perf_counter()
@@ -355,6 +359,12 @@ class VerifierPipeline(Verifier):
         self.last_seam_s = max(0.0, (time.perf_counter() - t0) - overlap_s)
         self.seam_s += self.last_seam_s
         return mask
+
+    def _prep_ahead(self, chunk: Sequence[Vertex], k: int):
+        """Queue chunk ``k``'s prep on the verifier's seam thread, its
+        spans tagged with the chunk's index."""
+        with tagged(chunk=k):
+            return self.verifier.prep_batch_async(chunk)
 
     # -- Verifier interface ----------------------------------------------
 
@@ -401,6 +411,8 @@ class VerifierPipeline(Verifier):
                 else round(self.overlap_fraction(), 3)
             ),
             "warmup_compile_s": round(self.warmup_compile_s, 2),
+            # span name -> (seconds, count) of the verify path
+            "spans": self.spans.totals(),
         }
         # host-prep engine gauges: worker count and the share
         # of prepped rows that actually took the parallel row-block path

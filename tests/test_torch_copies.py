@@ -37,8 +37,12 @@ transaction twice); each is pinned by a test of its behaviour in
 port drops (it runs as a package module and has no JAX); ``obs_report``'s
 capture mode forces its knob on through ``config.env_set``, a write the
 registry validates, where the reference assigns ``os.environ``
-(``tests/test_torch_scripts.py`` pins the behaviour). A copy cannot drift
-unseen.
+(``tests/test_torch_scripts.py`` pins the behaviour). The verifier
+pipeline's ``BLOCKS`` are the verify path's spans (``obs/spans.py``): the
+request and prep-stall spans, the chunk ids its calls into the verifier
+carry, the span book in ``stats()``, and no ``total_dispatch_s``, which
+the port's verifier no longer has (``tests/test_torch_verify_spans.py``
+pins them). A copy cannot drift unseen.
 """
 
 import ast
@@ -363,6 +367,69 @@ def split_batch(body: bytes):
                 self.pool._remove(tx)
                 self._inflight.pop(tx, None)
             return len(gone)
+""", ""),
+    ),
+    "verifier/pipeline.py": (
+        ("""from dag_rider_tpu_torch.obs.spans import SpanBook, tagged
+""", ""),
+        ("""        self.spans = getattr(verifier, "spans", None) or SpanBook()
+        self._requests = 0  # run_coalesced calls, the request span ids
+""", ""),
+        ("""        self.last_wait_s += dt
+        return out
+""", """        self.last_wait_s += dt
+        if hasattr(self.verifier, "total_dispatch_s"):
+            self.verifier.total_dispatch_s += dt
+        return out
+"""),
+        ("""        self._requests += 1
+        with tagged(req=self._requests), self.spans.span("dagrider.verify.request"):
+            return self._run_coalesced(vertices, overlap, hold_tail)
+
+    def _run_coalesced(self, vertices, overlap, hold_tail) -> List[bool]:
+""", ""),
+        ("""                preps.append((self._prep_ahead(chunks[nxt], nxt), chunks[nxt]))
+                nxt += 1
+            while preps:""", """                preps.append(
+                    (self.verifier.prep_batch_async(chunks[nxt]), chunks[nxt])
+                )
+                nxt += 1
+            while preps:"""),
+        ("""                    with self.spans.span(
+                        "dagrider.verify.prep_stall", chunk=nxt - len(preps) - 1
+                    ):
+                        prepped = fut.result()
+""", """                    prepped = fut.result()
+"""),
+        ("""                    preps.append((self._prep_ahead(chunks[nxt], nxt), chunks[nxt]))
+                    nxt += 1
+        else:
+            for k, chunk in enumerate(chunks):
+                while self._pending() >= depth:
+                    mask.extend(self._resolve_oldest())
+                with tagged(chunk=k):
+                    self._dispatch(chunk)
+""", """                    preps.append(
+                        (
+                            self.verifier.prep_batch_async(chunks[nxt]),
+                            chunks[nxt],
+                        )
+                    )
+                    nxt += 1
+        else:
+            for chunk in chunks:
+                while self._pending() >= depth:
+                    mask.extend(self._resolve_oldest())
+                self._dispatch(chunk)
+"""),
+        ("""    def _prep_ahead(self, chunk: Sequence[Vertex], k: int):
+        \"\"\"Queue chunk ``k``'s prep on the verifier's seam thread, its
+        spans tagged with the chunk's index.\"\"\"
+        with tagged(chunk=k):
+            return self.verifier.prep_batch_async(chunk)
+
+""", ""),
+        ("""            "spans": self.spans.totals(),
 """, ""),
     ),
 }

@@ -189,4 +189,8 @@ def test_commit_order_matches_cpu_oracle():
     cpu_logs = run(JCPUVerifier(jreg), [JSigner(s) for s in jseeds])
     assert any(cpu_logs), "nothing delivered"
     assert port_logs == cpu_logs
-    assert np.isfinite(port.last_prepare_s) and port.last_dispatch_s > 0
+    book = port.spans.totals()
+    prep_s, preps = book["dagrider.verify.prep"]
+    wait_s, waits = book["dagrider.verify.wait"]
+    assert preps == waits == port.total_dispatches > 0
+    assert np.isfinite(prep_s) and prep_s > 0 and np.isfinite(wait_s) and wait_s >= 0
